@@ -8,29 +8,77 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build of the CUDA kernels from csrc/ (nvcc), with the build time;
+2. build of the CUDA kernels from csrc/ (one nvcc per source, started
+   together), with the build time;
 3. K1 (LCP min-distance) against its plain PyTorch version at the main
    path's shapes: the exact stage (64 candidates x 8192 queries x the
-   headline's sampled P) and the coarse stages;
+   headline's sampled P) and the coarse stages; torch.cdist + amin at
+   the coarse shape as the library yardstick;
+3b. K1 at the 1M config's shapes (bench.py:109-123 sampled as the
+   matcher does: Np = 530,895, nq = 16384), which the TPU verified with
+   its streamed-P kernel K3; then min_sq_dists (K1 with the identity
+   transform, for K4a/K4b) against its plain version;
 4. K2 (band capture) against its plain version at n = 8192,
-   row_cap = 160, edge 0 with the join hash: cols/rc/h bit-identical;
+   row_cap = 160, edge 0 with the join hash: cols/rc/h bit-identical,
+   then the same with tile-pair rejection on;
+4a. K2 with all four pair filters on both edges of the headline's Q
+   samples (n = 8192 and 32768), rejection on and off, bit-identical to
+   each other and to the plain version, with the share of tile pairs
+   rejected;
 5. the headline registration — the 100k-point noisy bumpy-sphere pair
    of bench.py, Options(delta=0.01, sample_size=8192) through
-   MatchSuper4PCS on the GPU (rowcap engine). Both kernels must have
-   launched; LCP >= 0.7 and the known pose within rotDiff <= 0.2 /
-   trDiff <= 0.1;
+   MatchSuper4PCS on the GPU (rowcap engine, rejection on). Both kernels
+   must have launched; LCP >= 0.7 and the known pose within
+   rotDiff <= 0.2 / trDiff <= 0.1;
+5b. the filtered registration at the same width: radial normals and
+   abs(pos) * 200 colors (tools/parity_configs.py:105-121), normal and
+   color filters of BASELINE Config 3; same gates, filtered K2 launches;
 6. the 500-point known-pose recipe on the GPU (dense engine, K1 only);
-7. one JSON line of per-kernel results, then the last line
+7. a profile of headline steps: device busy and idle share per step,
+   kernels per step, time by kernel;
+8. one JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
+
+Kernel times are device times from torch.profiler; the plain versions
+and the library call are timed with CUDA events.
+
+With ``--seeds 1,3,5,7,11`` it then also runs the headline and the
+filtered registration once per seed with tile-pair rejection on and
+once with it off (alternating which goes first), and prints each run's
+search seconds, trials and LCP and the medians.
+
+Each registration (5, 5b, 6) is a path of its own: the launch counts
+are set to 0 just before it and read just after.
 
 Exits with code 2 and prints no result when no CUDA device is present.
 """
 
+import concurrent.futures
 import json
 import os
 import subprocess
 import sys
 import time
+
+#: H100 SXM peaks from NVIDIA's data sheet (at 700 W): float32 outside
+#: the tensor cores, and HBM bandwidth
+FP32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+#: fp32 operations per pair test (see the .cu notes): K1 3 sub, 3 mul,
+#: 2 add, 1 min; K2's band test a 3-term dot, d2 and two compares; an
+#: in-band pair adds 19 for the normal band, 2 for the scores and 5 for
+#: the angle; a captured pair with the hash 15 (3 x sub, mul, add, div,
+#: floor)
+K1_OPS = 9
+K2_BAND_OPS = 10
+K2_FILTER_OPS = {"normals": 19, "rowcol": 2, "angle": 5}
+K2_HASH_OPS = 15
+
+K1_NAME = "lcp_min_d2_kernel"
+K2_NAME = "rowcap_capture_kernel"
+
+TH = 0.8                    # the headline pair's rotation about z
+SHIFT = (0.1, -0.05, 0.2)   # and its translation (bench.py:48-51)
 
 
 def _log(*parts):
@@ -54,6 +102,56 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_events(fn):
+    """(name, microseconds) of every kernel the card ran during ``fn``,
+    from torch.profiler; fails when the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        raise SystemExit("torch.profiler recorded no device time")
+    return evs
+
+
+def _kernel_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device milliseconds of the kernel ``kernel`` per call of
+    ``fn`` (one launch per call), from the profiler: the kernel alone,
+    without the host time of its wrapper.
+
+    The profiler's CUDA trace now and then loses kernel records, so the
+    mean is over the launches it recorded; when it recorded none, the
+    calls are timed with CUDA events instead (wrapper included). It
+    fails when it recorded more than ``reps``."""
+    fn()
+    evs = _device_events(lambda: [fn() for _ in range(reps)])
+    times = [t for name, t in evs if kernel in name]
+    if len(times) > reps:
+        raise SystemExit(f"expected {reps} launches of {kernel}, the "
+                         f"profiler saw {len(times)}")
+    if len(times) < reps:
+        _log(f"  the profiler recorded {len(times)} of {reps} launches "
+             f"of {kernel}" + ("; timed with CUDA events" if not times
+                               else ""))
+    if not times:
+        return _cuda_ms(fn, reps, warmup=0)
+    return sum(times) / len(times) / 1e3
+
+
+def _bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations at the fp32
+    peak and the bytes at the memory rate."""
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes"))
+
+
 def _random_transforms(rng, c: int, max_angle: float, max_shift: float):
     """(c, 4, 4) float32 rigid transforms near the identity."""
     import numpy as np
@@ -69,6 +167,97 @@ def _random_transforms(rng, c: int, max_angle: float, max_shift: float):
         out[i, :3, 3] = rng.uniform(-max_shift, max_shift, 3)
         out[i, 3, 3] = 1.0
     return out
+
+
+def _rot():
+    import numpy as np
+    return np.array([[np.cos(TH), -np.sin(TH), 0],
+                     [np.sin(TH), np.cos(TH), 0], [0, 0, 1]], np.float32)
+
+
+def _ground_truth():
+    """The Q -> P pose of the bench.py pairs (q = R p + t)."""
+    import numpy as np
+    rot = _rot().astype(np.float64)
+    gt = np.eye(4)
+    gt[:3, :3] = rot.T
+    gt[:3, 3] = -rot.T @ np.array(SHIFT)
+    return gt
+
+
+def _ultra_pair():
+    """The 1M-point pair of bench.py:109-123 (numpy seed 0)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    n = 1_000_000
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    upos = (v * bump[:, None]).astype(np.float32)
+    uq = (upos @ _rot().T + np.float32(SHIFT)).astype(np.float32)
+    uq += rng.normal(scale=0.001, size=uq.shape).astype(np.float32)
+    return upos, uq
+
+
+def _filtered_clouds(P, Q, s4):
+    """The headline pair with radial normals (Q's rotated with the pair)
+    and colors abs(pos) * 200 carried by index, as
+    tools/parity_configs.py:105-121 builds them."""
+    import numpy as np
+    normal = (P / np.linalg.norm(P, axis=1, keepdims=True)).astype(
+        np.float32)
+    rgb = (np.abs(P) * 200).astype(np.float32)
+    return (s4.PointCloud(P, normal=normal, rgb=rgb),
+            s4.PointCloud(Q, normal=(normal @ _rot().T).astype(np.float32),
+                          rgb=rgb))
+
+
+def _run_path(label, fn, counters):
+    """Run one path with every launch count set to 0 just before it;
+    returns (its result, the counts just after, wall seconds, peak MiB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    _log(f"{label} launches: {counts}; max_memory_allocated "
+         f"{peak:.1f} MiB")
+    return res, counts, wall, peak
+
+
+def _seed_runs(seeds, opts, fopts, clouds, s4):
+    """The headline and filtered registrations per seed, rejection on
+    and off in alternating order; prints each run and the medians."""
+    import numpy as np
+    gt = _ground_truth()
+    for label, base, (cp, cq) in (("headline", opts, clouds[0]),
+                                  ("filtered", fopts, clouds[1])):
+        search = {True: [], False: []}
+        for i, seed in enumerate(seeds):
+            order = (True, False) if i % 2 == 0 else (False, True)
+            for reject in order:
+                o = base.replace(random_seed=seed, rowcap_tile_reject=reject)
+                res = s4.MatchSuper4PCS(o, device="cuda") \
+                    .compute_transformation(cp, cq)
+                rot_diff, tr_diff = s4.reference_pose_diff(res.transform,
+                                                           gt)
+                st = res.stats["search_seconds"]
+                search[reject].append(st)
+                _log(f"seeds {label} seed={seed} reject={reject}: "
+                     f"score={res.score:.4f} trials={res.n_trials} "
+                     f"search_s={st:.3f} rotDiff={rot_diff:.4f} "
+                     f"trDiff={tr_diff:.4f} escalated_to="
+                     f"{res.stats.get('escalated_to', '-')}")
+        _log(f"seeds {label}: median search_s rejection on "
+             f"{np.median(search[True]):.3f}, off "
+             f"{np.median(search[False]):.3f}")
 
 
 def main() -> int:
@@ -97,10 +286,11 @@ def main() -> int:
     _log("torch", torch.__version__, "cuda", torch.version.cuda,
          "device", torch.cuda.get_device_name(0))
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    k1._lib()
-    k2._lib()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(k._lib) for k in (k1, k2)]:
+            f.result()
     _log(f"build: {time.perf_counter() - t0:.3f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
@@ -123,7 +313,7 @@ def main() -> int:
     _log(f"headline samples: np={p_pos.shape[0]} nq={q_pos.shape[0]}")
     eps2 = float(np.float32(opts.delta) ** 2)
     trng = np.random.default_rng(0)
-    kernels = []
+    k1_err = 0.0
 
     # 3. K1 against its plain version
     k1_row = None
@@ -139,20 +329,97 @@ def main() -> int:
         ref = k1.lcp_min_d2_plain(tr, qs, ps)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
+        k1_err = max(k1_err, err)
         hits_k = int((got <= eps2).sum())
         hits_p = int((ref <= eps2).sum())
-        ms = _cuda_ms(lambda: k1.lcp_min_d2(tr, qs, ps), reps=10)
+        ms = _kernel_ms(lambda: k1.lcp_min_d2(tr, qs, ps), K1_NAME,
+                        reps=10)
         plain_ms = _cuda_ms(lambda: k1.lcp_min_d2_plain(tr, qs, ps),
                             reps=2)
+        bound_ms, bound_by = _bound(
+            K1_OPS * c * qs.shape[0] * ps.shape[0],
+            4 * (16 * c + 3 * qs.shape[0] + 3 * ps.shape[0]
+                 + c * qs.shape[0]))
         _log(f"K1 {label}: C={c} nq={qs.shape[0]} np={ps.shape[0]} "
              f"max|dd2|={err:.3e} hits kernel={hits_k} plain={hits_p} "
-             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+             f"bound {bound_ms:.3f} ms ({bound_by})")
         # same operations in the same order: expected bit-identical;
         # held to 1e-6 absolute (d2 of unit-scale clouds)
         if not (err <= 1e-6 and hits_k == hits_p):
             raise SystemExit(f"K1 {label} disagrees with its plain version")
-        if label == "exact":
-            k1_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        if label == "coarse-4096":
+            # the library yardstick: one PyTorch call for the same
+            # function on the transformed queries (its (C, nq, Np)
+            # distance matrix fits in memory at this shape only)
+            tq = torch.stack(k1._transformed(tr, qs), dim=-1)
+            pb = ps[None].expand(c, -1, -1)
+            lib = torch.cdist(tq, pb).amin(-1)
+            lib_err = float((lib * lib - ref).abs().max())
+            library_ms = _cuda_ms(lambda: torch.cdist(tq, pb).amin(-1),
+                                  reps=3)
+            _log(f"K1 library: torch.cdist(tq, p).amin(-1) at C={c} "
+                 f"nq={qs.shape[0]} np={ps.shape[0]}: {library_ms:.3f} ms"
+                 f" (max|cdist^2 - plain| {lib_err:.3e})")
+            k1_row = dict(shape=f"C={c} nq={qs.shape[0]} np={ps.shape[0]}",
+                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+
+    # 3b. K1 at the 1M config's shapes (the TPU's streamed-P K3), and
+    # min_sq_dists (K4a/K4b) against its plain version
+    t0 = time.perf_counter()
+    upos, uq = _ultra_pair()
+    urng = np.random.default_rng(5)
+    usp = sampling.sample_for_matching(s4.PointCloud(upos), 0.005, 16384,
+                                       False, urng)
+    usq = sampling.sample_for_matching(s4.PointCloud(uq), 0.005, 16384,
+                                       True, urng)
+    usq = usq.take(sampling.kd_argsort(usq.pos))
+    up = torch.as_tensor(usp.pos - usp.pos.mean(0), device=dev)
+    uqp = torch.as_tensor(usq.pos - usq.pos.mean(0), device=dev)
+    _log(f"1M config samples: np={up.shape[0]} nq={uqp.shape[0]} "
+         f"({time.perf_counter() - t0:.1f} s to build and sample)")
+    if up.shape[0] != 530_895 or uqp.shape[0] != 16384:
+        raise SystemExit("the 1M config's samples changed size")
+    tr = torch.as_tensor(_random_transforms(trng, 64, 0.05, 0.02),
+                         device=dev)
+    got = k1.lcp_min_d2(tr[:4], uqp, up)
+    ref = k1.lcp_min_d2_plain(tr[:4], uqp, up)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    k1_err = max(k1_err, err)
+    ms4 = _kernel_ms(lambda: k1.lcp_min_d2(tr[:4], uqp, up), K1_NAME,
+                     reps=3)
+    plain4 = _cuda_ms(lambda: k1.lcp_min_d2_plain(tr[:4], uqp, up),
+                      reps=1, warmup=0)
+    ms = _kernel_ms(lambda: k1.lcp_min_d2(tr, uqp, up), K1_NAME, reps=3)
+    bound_ms, bound_by = _bound(K1_OPS * 64 * uqp.shape[0] * up.shape[0],
+                                4 * (16 * 64 + 3 * uqp.shape[0]
+                                     + 3 * up.shape[0] + 64 * uqp.shape[0]))
+    _log(f"K1 1M: C=4 max|dd2|={err:.3e} vs plain, kernel {ms4:.3f} ms "
+         f"plain {plain4:.3f} ms; exact stage C=64 nq={uqp.shape[0]} "
+         f"np={up.shape[0]} kernel {ms:.3f} ms bound {bound_ms:.3f} ms "
+         f"({bound_by})")
+    if not (err <= 1e-6 and torch.equal(got <= 0.005 ** 2,
+                                        ref <= 0.005 ** 2)):
+        raise SystemExit("K1 at the 1M config disagrees with its plain "
+                         "version")
+    got = k1.min_sq_dists(uqp, up)
+    ref = k1.min_sq_dists_plain(uqp, up)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    k1_err = max(k1_err, err)
+    ms = _kernel_ms(lambda: k1.min_sq_dists(uqp, up), K1_NAME, reps=5)
+    plain_ms = _cuda_ms(lambda: k1.min_sq_dists_plain(uqp, up), reps=2)
+    bound_ms, bound_by = _bound(K1_OPS * uqp.shape[0] * up.shape[0],
+                                4 * (4 * uqp.shape[0] + 3 * up.shape[0]))
+    _log(f"K1 as min_sq_dists (K4a/K4b): M={uqp.shape[0]} "
+         f"np={up.shape[0]} max|dd2|={err:.3e} bit-identical="
+         f"{torch.equal(got, ref)} kernel {ms:.3f} ms plain "
+         f"{plain_ms:.3f} ms bound {bound_ms:.3f} ms ({bound_by})")
+    if not torch.equal(got, ref):
+        raise SystemExit("min_sq_dists disagrees with its plain version")
+    del upos, uq, up, uqp, got, ref
 
     # 4. K2 against its plain version (edge 0 with the join hash)
     gen = torch.Generator(device=dev)
@@ -160,67 +427,187 @@ def main() -> int:
     ids, inv1, _, bvalid = select.select_base(
         p_pos, float(torch.linalg.vector_norm(q_pos, dim=1).max() * 2),
         *select.draw_base_indices(gen, p_pos.shape[0], 1, 1000))
-    base = p_pos[ids[0]]
+    ids = ids[0]
+    base = p_pos[ids]
     d = torch.linalg.vector_norm(base[0] - base[1])
     eps = 2.0 * opts.delta
     lo2 = torch.clamp(d - eps, min=0.0) ** 2
     hi2 = (d + eps) ** 2
     row_cap = k2.slots_for(q_pos.shape[0], 160)
     cell = 4.0 * opts.delta
-    got = k2.rowcap_capture(q_pos, lo2, hi2, row_cap, inv=inv1[0],
-                            cell=cell, emit_hash=True)
-    geo = torch.stack([lo2, hi2, inv1[0], torch.tensor(cell, device=dev)])
-    ref = k2.rowcap_capture_plain(q_pos, geo.float(), row_cap, True)
+    cap_args = (q_pos, lo2, hi2, row_cap, inv1[0], cell, True)
+    got = k2.rowcap_capture(*cap_args)
+    ref = k2.rowcap_capture_plain(*cap_args)
     same = all(torch.equal(a, b) for a, b in zip(got, ref))
     mism = sum(int((a != b).sum()) for a, b in zip(got, ref))
-    err = max(int((a.long() - b.long()).abs().max())
-              for a, b in zip(got, ref))
+    k2_err = max(int((a.long() - b.long()).abs().max())
+                 for a, b in zip(got, ref))
     hits = int(got[1].sum())
-    ms = _cuda_ms(lambda: k2.rowcap_capture(
-        q_pos, lo2, hi2, row_cap, inv=inv1[0], cell=cell,
-        emit_hash=True), reps=20)
-    plain_ms = _cuda_ms(lambda: k2.rowcap_capture_plain(
-        q_pos, geo.float(), row_cap, True), reps=3)
+    ms = _kernel_ms(lambda: k2.rowcap_capture(*cap_args), K2_NAME,
+                    reps=20)
+    plain_ms = _cuda_ms(lambda: k2.rowcap_capture_plain(*cap_args), reps=3)
     _log(f"K2: n={q_pos.shape[0]} row_cap={row_cap} hits={hits} "
          f"captured={int((got[0] >= 0).sum())} bit-identical={same} "
          f"mismatches={mism} kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
     if not same or hits == 0:
         raise SystemExit("K2 disagrees with its plain version")
-    k2_row = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+    # ... and with tile-pair rejection on (the main path's default)
+    bounds = k2.reject_bounds(q_pos)
+    rej = float(k2.tile_reject_mask(*bounds, lo2, hi2).float().mean())
+    got = k2.rowcap_capture(*cap_args, bounds=bounds)
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    ms_rej = _kernel_ms(lambda: k2.rowcap_capture(*cap_args, bounds=bounds),
+                        K2_NAME, reps=20)
+    n_pad = k2._round_up(q_pos.shape[0], 2048)
+    tested = (1.0 - rej) * n_pad * n_pad
+    bound_ms, bound_by = _bound(
+        K2_BAND_OPS * tested + K2_HASH_OPS * int((got[0] >= 0).sum()),
+        12 * q_pos.shape[0] + 4 * n_pad * (2 * row_cap + 1))
+    _log(f"K2 with rejection: {100 * rej:.1f}% of tile pairs rejected, "
+         f"bit-identical={same} kernel {ms_rej:.3f} ms (off {ms:.3f} ms) "
+         f"bound {bound_ms:.4f} ms ({bound_by})")
+    if not same:
+        raise SystemExit("K2 with rejection disagrees with its plain "
+                         "version")
+    k2_row = dict(shape=f"n={q_pos.shape[0]} row_cap={row_cap} edge 0 "
+                  f"with hash, rejection on", ms=ms_rej, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+    # 4a. K2 with all four filters, both edges, rejection on and off
+    fP, fQ = _filtered_clouds(P, Q, s4)
+    filters = dict(max_normal_difference=20.0, max_color_distance=60.0,
+                   max_translation_distance=1.3, max_angle=80.0)
+    # P's voxel sample keeps the order of the headline's (sp), so the
+    # base ids index its normals and colors
+    fsp = sampling.sample_for_matching(fP, opts.delta, 8192, False,
+                                       np.random.default_rng(0))
+    if not np.array_equal(fsp.pos, sp.pos):
+        raise SystemExit("the filtered P sample differs from the headline's")
+    for n_q, target in ((8192, 160), (32768, 160)):
+        fsq = sampling.sample_for_matching(fQ, opts.delta, n_q, True,
+                                           np.random.default_rng(n_q))
+        fsq = fsq.take(sampling.kd_argsort(fsq.pos))
+        fq = torch.as_tensor(fsq.pos - fsq.pos.mean(0), device=dev)
+        fn_ = torch.as_tensor(fsq.normals_or_zero(), device=dev)
+        fc = torch.as_tensor(fsq.rgb_or_invalid(), device=dev)
+        bp = base
+        bn = torch.as_tensor(fsp.normals_or_zero(), device=dev)[ids]
+        bc = torch.as_tensor(fsp.rgb_or_invalid(), device=dev)[ids]
+        rcap = k2.slots_for(fq.shape[0], target)
+        fbounds = k2.reject_bounds(fq)
+        # rejection share over 64 bases drawn as the matcher draws them
+        gen.manual_seed(n_q)
+        many, _, _, _ = select.select_base(
+            p_pos, float(torch.linalg.vector_norm(q_pos, dim=1).max() * 2),
+            *select.draw_base_indices(gen, p_pos.shape[0], 64, 1000))
+        shares = torch.stack([
+            k2.tile_reject_mask(*fbounds, kw["lo2"], kw["hi2"]).float()
+            .mean() for b4 in p_pos[many]
+            for kw in k2.edge_args(fq, b4, eps)])
+        _log(f"K2 rejection at n={fq.shape[0]} over 64 bases x 2 edges: "
+             f"mean {100 * float(shares.mean()):.1f}%, min "
+             f"{100 * float(shares.min()):.1f}%, max "
+             f"{100 * float(shares.max()):.1f}% of tile pairs")
+        args = k2.edge_args(fq, bp, eps, fn_, fc, bn, bc, **filters)
+        bare = k2.edge_args(fq, bp, eps)
+        n_pad = k2._round_up(fq.shape[0], 2048)
+        for e, (kw, kw0) in enumerate(zip(args, bare)):
+            hash_kw = (dict(inv=inv1[0], cell=cell, emit_hash=True)
+                       if e == 0 else {})
+            ref = k2.rowcap_capture_plain(fq, row_cap=rcap, **hash_kw,
+                                          **kw)
+            on = k2.rowcap_capture(fq, row_cap=rcap, bounds=fbounds,
+                                   **hash_kw, **kw)
+            off = k2.rowcap_capture(fq, row_cap=rcap, **hash_kw, **kw)
+            unf = k2.rowcap_capture(fq, row_cap=rcap, **hash_kw, **kw0)
+            same = all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(on, off, ref))
+            k2_err = max([k2_err] + [int((a.long() - b.long()).abs().max())
+                                     for a, b in zip(on, ref)])
+            rej = float(k2.tile_reject_mask(fbounds[0], fbounds[1],
+                                            kw["lo2"], kw["hi2"])
+                        .float().mean())
+            ms_on = _kernel_ms(lambda: k2.rowcap_capture(
+                fq, row_cap=rcap, bounds=fbounds, **hash_kw, **kw),
+                K2_NAME, reps=10)
+            ms_off = _kernel_ms(lambda: k2.rowcap_capture(
+                fq, row_cap=rcap, **hash_kw, **kw), K2_NAME, reps=10)
+            ms_unf = _kernel_ms(lambda: k2.rowcap_capture(
+                fq, row_cap=rcap, bounds=fbounds, **hash_kw, **kw0),
+                K2_NAME, reps=10)
+            pl_ms = _cuda_ms(lambda: k2.rowcap_capture_plain(
+                fq, row_cap=rcap, **hash_kw, **kw), reps=2)
+            in_band = int(unf[1].sum())
+            ops = (K2_BAND_OPS * (1.0 - rej) * n_pad * n_pad
+                   + sum(K2_FILTER_OPS.values()) * in_band
+                   + (K2_HASH_OPS * int((on[0] >= 0).sum()) if e == 0
+                      else 0))
+            nbytes = (4 * fq.shape[0] * 10
+                      + 4 * n_pad * ((2 if e == 0 else 1) * rcap + 1))
+            b_ms, b_by = _bound(ops, nbytes)
+            _log(f"K2 filtered: n={fq.shape[0]} row_cap={rcap} edge {e} "
+                 f"pairs in band={in_band} passing filters="
+                 f"{int(on[1].sum())} bit-identical (on, off, plain)="
+                 f"{same} rejected={100 * rej:.1f}% kernel {ms_on:.3f} ms "
+                 f"(rejection off {ms_off:.3f} ms, unfiltered "
+                 f"{ms_unf:.3f} ms) plain {pl_ms:.3f} ms bound "
+                 f"{b_ms:.4f} ms ({b_by})")
+            if not same or int(on[1].sum()) == 0:
+                raise SystemExit("filtered K2 disagrees with its plain "
+                                 "version")
+    del fq, fn_, fc, on, off, ref, unf
+
+    counters = {"lcp_min_d2": (k1.lcp_min_d2, "launches"),
+                "rowcap_capture": (k2.rowcap_capture, "launches"),
+                "rowcap_capture_filtered": (k2.rowcap_capture,
+                                            "filtered_launches")}
+    gt = _ground_truth()
+    b_eff = s4.matcher.resolve_bases_per_step(opts, q_pos.shape[0])
+    by_path = {}
+
+    def report(label, res, wall, peak):
+        rot_diff, tr_diff = s4.reference_pose_diff(res.transform, gt)
+        steps = max(res.n_trials // b_eff, 1)
+        st = res.stats
+        _log(f"{label}: score={res.score:.4f} trials={res.n_trials} "
+             f"steps={steps} "
+             f"search_s={st.get('search_seconds', float('nan')):.3f} "
+             f"mean_step_s={st.get('search_seconds', 0.0) / steps:.3f} "
+             f"wall_s={wall:.3f} rotDiff={rot_diff:.4f} "
+             f"trDiff={tr_diff:.4f} pairs_per_step="
+             f"{st.get('n_pairs', 0) / steps:.0f} peak_MiB={peak:.1f}")
+        _log(f"{label} stats:", json.dumps(
+            {k: v for k, v in st.items() if not isinstance(v, dict)}))
+        if not (res.score >= 0.7 and rot_diff <= 0.2 and tr_diff <= 0.1):
+            raise SystemExit(f"{label} registration missed its gates")
+        return st.get("n_pairs", 0) / steps
 
     # 5. the headline registration through the public entry point
-    torch.cuda.reset_peak_memory_stats()
-    k1.lcp_min_d2.launches = 0
-    k2.rowcap_capture.launches = 0
-    t0 = time.perf_counter()
-    res = s4.MatchSuper4PCS(opts, device="cuda").compute_transformation(
-        s4.PointCloud(P), s4.PointCloud(Q))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"lcp_min_d2": k1.lcp_min_d2.launches,
-                "rowcap_capture": k2.rowcap_capture.launches}
-    th = 0.8
-    rot = np.array([[np.cos(th), -np.sin(th), 0],
-                    [np.sin(th), np.cos(th), 0], [0, 0, 1]])
-    gt = np.eye(4)
-    gt[:3, :3] = rot.T                       # Q -> P undoes q = R p + t
-    gt[:3, 3] = -rot.T @ np.array([0.1, -0.05, 0.2])
-    rot_diff, tr_diff = s4.reference_pose_diff(res.transform, gt)
-    b_eff = s4.matcher.resolve_bases_per_step(opts, q_pos.shape[0])
-    steps = max(res.n_trials // b_eff, 1)
-    st = res.stats
-    _log(f"headline: score={res.score:.4f} trials={res.n_trials} "
-         f"search_s={st.get('search_seconds', float('nan')):.3f} "
-         f"mean_step_s={st.get('search_seconds', 0.0) / steps:.3f} "
-         f"wall_s={wall:.3f} rotDiff={rot_diff:.4f} trDiff={tr_diff:.4f}")
-    _log("headline stats:", json.dumps(
-        {k: v for k, v in st.items() if not isinstance(v, dict)}))
-    _log(f"headline launches: {launches}; max_memory_allocated "
-         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    if min(launches.values()) <= 0:
+    res, counts, wall, peak = _run_path(
+        "headline", lambda: s4.MatchSuper4PCS(
+            opts, device="cuda").compute_transformation(
+                s4.PointCloud(P), s4.PointCloud(Q)), counters)
+    by_path["headline"] = counts
+    if min(counts["lcp_min_d2"], counts["rowcap_capture"]) <= 0:
         raise SystemExit("a kernel of the main path never launched")
-    if not (res.score >= 0.7 and rot_diff <= 0.2 and tr_diff <= 0.1):
-        raise SystemExit("headline registration missed its gates")
+    pairs_headline = report("headline", res, wall, peak)
+
+    # 5b. the filtered registration at the headline's width
+    fopts = (s4.Options(delta=0.01, sample_size=8192,
+                        max_normal_difference=20.0, max_color_distance=60.0,
+                        max_time_seconds=120, random_seed=1)
+             .configure_overlap(0.7, terminate_threshold=0.7))
+    res, counts, wall, peak = _run_path(
+        "filtered", lambda: s4.MatchSuper4PCS(
+            fopts, device="cuda").compute_transformation(fP, fQ), counters)
+    by_path["filtered"] = counts
+    if (min(counts["lcp_min_d2"], counts["rowcap_capture"]) <= 0
+            or counts["rowcap_capture_filtered"] <= 0):
+        raise SystemExit("a kernel of the filtered path never launched")
+    pairs_filtered = report("filtered", res, wall, peak)
+    _log(f"pairs per step: filtered {pairs_filtered:.0f} against "
+         f"unfiltered headline {pairs_headline:.0f} "
+         f"({pairs_filtered / max(pairs_headline, 1):.3f}x)")
 
     # 6. the 500-point known-pose recipe (dense engine, K1 only)
     r2 = np.random.default_rng(11)
@@ -233,8 +620,11 @@ def main() -> int:
     R = np.array([[np.cos(ang), -np.sin(ang), 0],
                   [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
     source = (target - np.array([.4, -.2, .7], np.float32)) @ R
-    r = s4.register(target, source, overlap=0.9, delta=0.05,
-                    sample_size=500, max_time_seconds=30, device="cuda")
+    r, counts, _, _ = _run_path(
+        "recipe", lambda: s4.register(
+            target, source, overlap=0.9, delta=0.05, sample_size=500,
+            max_time_seconds=30, device="cuda"), counters)
+    by_path["recipe"] = counts
     moved = source @ r.transform[:3, :3].T + r.transform[:3, 3]
     med = float(np.median(np.linalg.norm(moved - target, axis=1)))
     _log(f"recipe: score={r.score:.4f} median_err={med:.3e} "
@@ -242,17 +632,65 @@ def main() -> int:
          f"search_s={r.stats.get('search_seconds', float('nan')):.3f}")
     if not (r.score > 0.95 and med < 0.05):
         raise SystemExit("500-point recipe missed its gates")
+    if counts["lcp_min_d2"] <= 0:
+        raise SystemExit("K1 never launched on the recipe path")
 
-    kernels.append(dict(
-        name="lcp_min_d2", route="cuda",
-        source="super4pcs_tpu_torch/csrc/lcp.cu",
-        replaces="super4pcs_tpu/kernels/lcp_pallas.py:76",
-        launches=launches["lcp_min_d2"], **k1_row))
-    kernels.append(dict(
-        name="rowcap_capture", route="cuda",
-        source="super4pcs_tpu_torch/csrc/rowcap.cu",
-        replaces="super4pcs_tpu/kernels/rowcap_pallas.py:115",
-        launches=launches["rowcap_capture"], **k2_row))
+    # 7. where a headline step's time goes: 4 steps under the profiler,
+    # after 4 unprofiled ones for their wall time (outside every path)
+    m = s4.MatchSuper4PCS(opts, device="cuda")
+    m._init(s4.PointCloud(P), s4.PointCloud(Q))
+    m._run_step(0)
+    t0 = time.perf_counter()
+    for i in range(1, 5):
+        m._run_step(i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 4
+    evs = _device_events(lambda: [m._run_step(i) for i in range(5, 9)])
+    busy = sum(t for _, t in evs) / 4 / 1e3
+    parts = {}
+    for name, t in evs:
+        key = (K1_NAME if K1_NAME in name else K2_NAME if K2_NAME in name
+               else "sort" if "sort" in name.lower() else "other")
+        ms_, n_ = parts.get(key, (0.0, 0))
+        parts[key] = (ms_ + t / 4 / 1e3, n_ + 1)
+    _log(f"headline step profile (steps 5-8 of seed 1): wall "
+         f"{1e3 * step_s:.1f} ms per unprofiled step, device busy "
+         f"{busy:.1f} ms per step (idle share "
+         f"{100 * (1 - busy / (1e3 * step_s)):.0f}%), "
+         f"{len(evs) / 4:.0f} kernels per step; per step: " + ", ".join(
+             f"{k} {v[0]:.2f} ms in {v[1] / 4:.0f} launches"
+             for k, v in sorted(parts.items(), key=lambda kv: -kv[1][0])))
+
+    def launches(name):
+        return {path: c[name] for path, c in by_path.items()}
+
+    lk = "super4pcs_tpu/kernels/lcp_pallas.py"
+    rk = "super4pcs_tpu/kernels/rowcap_pallas.py"
+    kernels = [
+        dict(name="lcp_min_d2", route="cuda",
+             source="super4pcs_tpu_torch/csrc/lcp.cu",
+             replaces=(f"{lk}:76 (K1 _lcp_min_kernel); {lk}:276 (K3 "
+                       f"_lcp_min_stream_kernel); {lk}:183 (K4a "
+                       f"_min_dist_kernel); {lk}:227 (K4b "
+                       f"_min_dist_stream_kernel)"),
+             launches=sum(launches("lcp_min_d2").values()),
+             launches_by_path=launches("lcp_min_d2"),
+             max_abs_err=k1_err, **k1_row),
+        dict(name="rowcap_capture", route="cuda",
+             source="super4pcs_tpu_torch/csrc/rowcap.cu",
+             replaces=(f"{rk}:115 (K2 _kernel + _kernel_body :202); "
+                       f"{rk}:168 (K2c tile-pair rejection, _tile_bounds "
+                       f":323); {rk}:233 (K2d pair filters)"),
+             launches=sum(launches("rowcap_capture").values()),
+             launches_by_path=launches("rowcap_capture"),
+             filtered_launches=launches("rowcap_capture_filtered"),
+             max_abs_err=float(k2_err), **k2_row),
+    ]
+    if "--seeds" in sys.argv:
+        seeds = [int(x) for x in
+                 sys.argv[sys.argv.index("--seeds") + 1].split(",")]
+        _seed_runs(seeds, opts, fopts, ((s4.PointCloud(P), s4.PointCloud(Q)),
+                                        (fP, fQ)), s4)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

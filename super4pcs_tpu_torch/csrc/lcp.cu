@@ -1,7 +1,10 @@
 // K1: LCP min squared distance, out[c, q] = min_p |R_c q + t_c - p|^2.
 //
 // Replaces the TPU kernel super4pcs_tpu/kernels/lcp_pallas.py::
-// _lcp_min_kernel (launched by candidate_min_sq_dists). It is the
+// _lcp_min_kernel (K1, launched by candidate_min_sq_dists), and with it
+// the streamed-P _lcp_min_stream_kernel (K3) and, through one identity
+// transform (kernels/lcp.py::min_sq_dists), the untransformed
+// _min_dist_kernel and _min_dist_stream_kernel (K4a, K4b). It is the
 // verify step of every registration: the initial identity verify, the
 // coarse, mid and exact stages of lcp_scores_two_stage, and the
 // re-verify after each refine.
@@ -11,8 +14,9 @@
 // (the coarse stage has nq = 64) and no thread idles. The thread applies
 // its transform in registers, then streams P through shared memory in
 // tiles of P_TILE points; every thread of the block reads the same
-// float4 per step (a broadcast, no bank conflicts), so any Np works
-// (this also covers the range of the TPU's streamed-P kernel K3).
+// float4 per step (a broadcast, no bank conflicts), so any Np works:
+// the TPU's split between a VMEM-resident P (up to 300k points) and a
+// streamed one has no counterpart here.
 //
 // Bound. C * nq * Np pair tests of 8 flops each (3 sub, 3 mul, 2 add)
 // plus a min, on the CUDA cores, fp32, no tensor cores: compute-bound.

@@ -30,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "--ptxas-options=-v")
 
 _lock = threading.Lock()
+#: one lock per kernel, so that two kernels build at once (in threads)
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register / shared-memory report) per kernel
 build_logs: dict[str, str] = {}
@@ -53,8 +55,12 @@ def nvcc_path() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, compiling it
-    first when no build of this exact source exists."""
+    first when no build of this exact source exists. Different kernels
+    may be loaded from several threads at once; each runs its own
+    ``nvcc``."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

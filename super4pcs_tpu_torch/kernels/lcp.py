@@ -7,10 +7,15 @@ ref:src/super4pcs/algorithms/match4pcsBase.cc:504-567). The CUDA kernel
 ``super4pcs_tpu/kernels/lcp_pallas.py::_lcp_min_kernel``; its note says
 what bounds it and how it is laid out.
 
-The wrapper sends a CPU tensor to :func:`lcp_min_d2_plain` and launches
-the kernel for a CUDA tensor (or raises): there is no fallback between
-the two. Both compute d^2 as the sum of squared coordinate differences
-in the same order, so they agree bit for bit.
+The same kernel covers the TPU's streamed-P variant
+``_lcp_min_stream_kernel`` (K3) and the untransformed
+``_min_dist_kernel`` / ``_min_dist_stream_kernel`` (K4a / K4b) through
+:func:`min_sq_dists`.
+
+The wrappers send a CPU tensor to the plain version and launch the
+kernel for a CUDA tensor (or raise): there is no fallback between the
+two. Both compute d^2 as the sum of squared coordinate differences in
+the same order, so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -39,22 +44,21 @@ def _transformed(transforms: torch.Tensor, q: torch.Tensor):
     return out
 
 
-def lcp_min_d2_plain(transforms: torch.Tensor, q: torch.Tensor,
-                     p: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: blocked over the flattened
-    (C * nq) rows and over P, the same arithmetic order."""
-    c, nq, np_ = transforms.shape[0], q.shape[0], p.shape[0]
-    out = torch.full((c * nq,), float("inf"), dtype=torch.float32,
-                     device=q.device)
-    if c * nq == 0 or np_ == 0:
-        return out.view(c, nq)
-    tx, ty, tz = (t.reshape(-1, 1) for t in _transformed(transforms, q))
+def _min_d2_rows(tx, ty, tz, p: torch.Tensor) -> torch.Tensor:
+    """(M,) min over P of ``(tx - px)^2 + (ty - py)^2 + (tz - pz)^2``
+    for the (M, 1) coordinate columns, blocked over the rows and over
+    P, in the kernel's order."""
+    m, np_ = tx.shape[0], p.shape[0]
+    out = torch.full((m,), float("inf"), dtype=torch.float32,
+                     device=p.device)
+    if m == 0 or np_ == 0:
+        return out
     px, py, pz = p[:, 0], p[:, 1], p[:, 2]
-    budget = _elem_budget(q.device)
+    budget = _elem_budget(p.device)
     pb = min(np_, max(budget // 64, 1024))
     rb = max(budget // pb, 1)
-    for r0 in range(0, c * nq, rb):
-        r1 = min(r0 + rb, c * nq)
+    for r0 in range(0, m, rb):
+        r1 = min(r0 + rb, m)
         best = out[r0:r1]
         for p0 in range(0, np_, pb):
             p1 = min(p0 + pb, np_)
@@ -65,7 +69,18 @@ def lcp_min_d2_plain(transforms: torch.Tensor, q: torch.Tensor,
             e = tz[r0:r1] - pz[p0:p1]
             d.add_(e.mul_(e))
             torch.minimum(best, d.amin(dim=1), out=best)
-    return out.view(c, nq)
+    return out
+
+
+def lcp_min_d2_plain(transforms: torch.Tensor, q: torch.Tensor,
+                     p: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: blocked over the flattened
+    (C * nq) rows and over P, the same arithmetic order."""
+    c, nq = transforms.shape[0], q.shape[0]
+    if c * nq == 0:
+        return torch.empty((c, nq), dtype=torch.float32, device=q.device)
+    tx, ty, tz = (t.reshape(-1, 1) for t in _transformed(transforms, q))
+    return _min_d2_rows(tx, ty, tz, p).view(c, nq)
 
 
 def lcp_min_d2(transforms: torch.Tensor, q: torch.Tensor,
@@ -116,3 +131,35 @@ def _lib():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def min_sq_dists_plain(tq: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`min_sq_dists`: the direct
+    ``min_j |tq_m - p_j|^2`` with no transform, in the kernel's order."""
+    return _min_d2_rows(tq[:, 0:1], tq[:, 1:2], tq[:, 2:3], p)
+
+
+def min_sq_dists(tq: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(M,) f32 ``min_j |tq_m - p_j|^2`` of the (M, 3) rows ``tq`` to the
+    (Np, 3) cloud ``p``, with no transform.
+
+    It launches K1 with one identity transform, which reproduces ``tq``
+    exactly (``((1 x + 0 y) + 0 z) + 0 = x`` in IEEE arithmetic), so it
+    is bit-identical to :func:`min_sq_dists_plain`. This covers three
+    TPU kernels of ``super4pcs_tpu/kernels/lcp_pallas.py``:
+    ``_min_dist_kernel`` (K4a, via ``min_sq_dists``),
+    ``_min_dist_stream_kernel`` (K4b, via ``min_sq_dists_streamed``) and,
+    for transformed queries, ``_lcp_min_stream_kernel`` (K3, via
+    ``candidate_min_sq_dists_streamed``, which is :func:`lcp_min_d2`).
+    The TPU split each into a VMEM-resident P (up to 300k points) and a
+    P streamed through the Pallas pipeline; on the card K1 always
+    streams P through shared memory in 1024-point tiles, so one kernel
+    serves every Np. CPU tensors take the plain version.
+    """
+    if tq.dtype != torch.float32 or tq.ndim != 2 or tq.shape[1] != 3:
+        raise ValueError(f"min_sq_dists: tq must be float32 (M, 3), got "
+                         f"{tq.dtype} {tuple(tq.shape)}")
+    if tq.device.type == "cpu":
+        return min_sq_dists_plain(tq, p)
+    eye = torch.eye(4, dtype=torch.float32, device=tq.device)[None]
+    return lcp_min_d2(eye, tq, p)[0]

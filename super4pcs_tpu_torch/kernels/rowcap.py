@@ -1,10 +1,12 @@
 """K2: row-capped band capture (the Super4PCS pair-creation stage,
 ref:src/super4pcs/pairCreationFunctor.h:120-204) for the rowcap engine.
 
-The CUDA kernel (``csrc/rowcap.cu``) replaces the unfiltered branch of
-the TPU kernel ``super4pcs_tpu/kernels/rowcap_pallas.py::_kernel`` +
-``_kernel_body``; its note says what bounds it and how it is laid out.
-The capture contract is the JAX package's, unchanged:
+The CUDA kernel (``csrc/rowcap.cu``) replaces the TPU kernel
+``super4pcs_tpu/kernels/rowcap_pallas.py::_kernel`` + ``_kernel_body``
+whole: the band capture, its in-kernel pair filters (normals, color and
+translation, angle) and its tile-pair rejection. Its note says what
+bounds it and how it is laid out. The capture contract is the JAX
+package's, unchanged:
 
 - ``n_pad = round_up(n, 2048)``, 512-column segments, and
   ``row_cap == slots_for(n, row_cap)`` slots per row;
@@ -17,16 +19,17 @@ The capture contract is the JAX package's, unchanged:
 :func:`rowcap_capture` sends a CPU tensor to
 :func:`rowcap_capture_plain` and launches the kernel for a CUDA tensor
 (or raises). Both compute d^2 as ``(|a|^2 + |b|^2) - 2 a.b`` with the
-dot product written out as ``(ax bx + ay by) + az bz``, and the hash as
-the port's own join hash (ops/congruent.py), so they agree bit for bit.
-The in-kernel pair filters of the TPU kernel (normals, color,
-translation, angle) are not ported: filtered configurations at
-nq > 2048 raise in :func:`extract_pairs_rowcap_both`.
+dot product written out as ``(ax bx + ay by) + az bz``, each filter
+predicate in one fixed order (see :func:`rowcap_capture_plain`), and
+the hash as the port's own join hash (ops/congruent.py), so they agree
+bit for bit. The plain version applies no tile-pair rejection: the
+kernel's is conservative, so its output is the same either way.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -76,22 +79,139 @@ def _scalar(v, dev) -> torch.Tensor:
     return torch.full((), float(v), dtype=torch.float32, device=dev)
 
 
-def rowcap_capture_plain(q: torch.Tensor, geo: torch.Tensor, row_cap: int,
-                         emit_hash: bool, row_block: int = 1024):
-    """Plain PyTorch version of the kernel (same arguments as
-    :func:`rowcap_capture`, with ``geo`` = [lo2, hi2, inv, cell])."""
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+                      + v[..., 2] * v[..., 2])
+
+
+def filter_scores(pos, rgb, base_pos, base_rgb, e0: int, e1: int,
+                  max_color_distance: float,
+                  max_translation_distance: float) -> torch.Tensor:
+    """Separable color/translation endpoint scores, (2, n) float32: row
+    0 scores a pair's first endpoint against base point ``e0``, row 1
+    its second against ``e1`` (the JAX package's ``_filter_scores``).
+    A pair passes iff ``row + col >= 2``:
+
+    - translation fail -> -10 (sinks any partner);
+    - no color check (either endpoint or the base lacks color) -> 2;
+    - color checked and good -> 1; checked and bad -> 0.
+
+    The reference checks color only when both endpoints and the base
+    carry it (ref:4pcs.cc:161-171), which the 2 + 0 = 2 escape keeps.
+    """
+    n = pos.shape[0]
+    scores = []
+    for b in (e0, e1):
+        s = torch.full((n,), 2.0, dtype=torch.float32, device=pos.device)
+        if max_color_distance > 0:
+            has = rgb[:, 0] >= 0
+            base_has = (base_rgb[e0][0] >= 0) & (base_rgb[e1][0] >= 0)
+            good = _norm3(rgb - base_rgb[b]) < max_color_distance
+            s = torch.where(base_has & has,
+                            torch.where(good, 1.0, 0.0), s)
+        if max_translation_distance > 0:
+            far = _norm3(pos - base_pos[b]) >= max_translation_distance
+            s = torch.where(far, -10.0, s)
+        scores.append(s)
+    return torch.stack(scores)
+
+
+def tile_bounds(pos: torch.Tensor, n_pad: int, tile: int) -> torch.Tensor:
+    """(n_pad / tile, 4) float32 bounding spheres ``[cx, cy, cz, r]`` of
+    each ``tile``-point slice of the padded layout (real points only).
+    An empty tile gets c = 1e18 and r = 0, so it rejects against any
+    real tile."""
+    n = pos.shape[0]
+    nt = n_pad // tile
+    dev = pos.device
+    pp = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
+    pp[:n] = pos
+    rm = (torch.arange(n_pad, device=dev) < n).view(nt, tile)
+    p3 = pp.view(nt, tile, 3)
+    cnt = rm.sum(dim=1)
+    c = (p3 * rm[..., None]).sum(dim=1) / torch.clamp(cnt, min=1)[:, None]
+    r = (_norm3(p3 - c[:, None, :]) * rm).amax(dim=1)
+    c = torch.where(cnt[:, None] > 0, c, _PAD)
+    r = torch.where(cnt > 0, r, 0.0)
+    return torch.cat([c, r[:, None]], dim=1)
+
+
+def reject_bounds(pos: torch.Tensor):
+    """The row-tile and column-segment bounding spheres of ``pos`` that
+    the kernel's tile-pair rejection reads: ``(rowb (n_pad / 256, 4),
+    colb (n_pad / 512, 4))``. They depend on the points only, so a
+    caller with fixed points computes them once."""
+    n_pad = _round_up(pos.shape[0], 2048)
+    return (tile_bounds(pos, n_pad, ROW_TILE),
+            tile_bounds(pos, n_pad, COL_TILE))
+
+
+def tile_reject_mask(rowb: torch.Tensor, colb: torch.Tensor, lo2,
+                     hi2) -> torch.Tensor:
+    """(n_rt, n_ct) bool: the (row tile, column segment) pairs whose
+    bounding spheres cannot meet the band ``lo2 <= d^2 <= hi2``, the
+    kernel's rejection predicate (``rowcap_pallas.py:169-180``) with its
+    slack ``1e-5 * (hi + dc) + 1e-12`` against float32 rounding."""
+    dv = rowb[:, None, :3] - colb[None, :, :3]
+    dc = _norm3(dv)
+    rsum = rowb[:, None, 3] + colb[None, :, 3]
+    lo = torch.sqrt(torch.clamp(torch.as_tensor(lo2, dtype=torch.float32,
+                                                device=rowb.device),
+                                min=0.0))
+    hi = torch.sqrt(torch.as_tensor(hi2, dtype=torch.float32,
+                                    device=rowb.device))
+    slack = 1.0e-5 * (hi + dc) + 1.0e-12
+    return (dc - rsum > hi + slack) | (dc + rsum < lo - slack)
+
+
+def rowcap_capture_plain(q: torch.Tensor, lo2, hi2, row_cap: int, inv=0.0,
+                         cell=1.0, emit_hash: bool = False, *,
+                         normals=None, aux=None, rcscore=None, nang=0.0,
+                         nthr=0.0, cmax=None, row_block: int = 1024):
+    """Plain PyTorch version of the kernel, with the arguments of
+    :func:`rowcap_capture` (no ``bounds``: it rejects nothing).
+
+    ``normals`` (n, 3) turns the normal band on, ``rcscore`` (2, n) the
+    color/translation scores, ``cmax`` the angle test; ``aux`` (2, n)
+    holds ``pos . seg`` (row 0) and ``|n|^2`` (row 1). Each predicate
+    in the kernel's order:
+
+    - normals: ``ndot = (nx_i nx_j + ny_i ny_j) + nz_i nz_j``,
+      ``dminus = sqrt(max((n2_i + n2_j) - 2 ndot, 0))`` and ``dplus``
+      with ``+``; the pair passes when ``~(n2_i > 0 & n2_j > 0)`` or
+      ``min(|dminus - nang|, |dplus - nang|) <= nthr``;
+    - scores: ``rs_i + cs_j >= 2``;
+    - angle: ``(bseg_j - aseg_i) >= cmax * sqrt(max(d2, 0))``.
+    """
     n = q.shape[0]
     n_pad = _round_up(n, 2048)
     segs = n_pad // COL_TILE
     seg_q = row_cap // segs
     dev = q.device
-    lo2, hi2, inv, cell = geo.unbind()
+    lo2, hi2, inv, cell, nang, nthr = (_scalar(v, dev) for v in (
+        lo2, hi2, inv, cell, nang, nthr))
     qp = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
     qp[:n] = q
     qp[n:, 0] = _PAD
     x, y, z = qp[:, 0], qp[:, 1], qp[:, 2]
     sq = (x * x + y * y) + z * z
     j = torch.arange(n_pad, device=dev)
+
+    def plane(rows, fill=0.0):
+        # (k, n) per-point rows, zero-padded to n_pad columns
+        out = torch.full((rows.shape[0], n_pad), fill, dtype=torch.float32,
+                         device=dev)
+        out[:, :n] = rows
+        return out
+
+    if normals is not None:
+        nrm = plane(normals.T)
+        n2 = plane(aux[1:2])[0]
+    if rcscore is not None:
+        score = plane(rcscore)
+    if cmax is not None:
+        seg = plane(aux[0:1])[0]
+        cmax = _scalar(cmax, dev)
     cols = torch.full((n_pad, row_cap), -1, dtype=torch.int32, device=dev)
     rc = torch.zeros(n_pad, dtype=torch.int32, device=dev)
     k = min(seg_q, COL_TILE)
@@ -102,6 +222,21 @@ def rowcap_capture_plain(q: torch.Tensor, geo: torch.Tensor, row_cap: int,
         d2 = (sq[r0:r1, None] + sq[None, :]) - 2.0 * dot
         hit = ((d2 >= lo2) & (d2 <= hi2) & (j < n)
                & (j[None, :] != j[r0:r1, None]))
+        if normals is not None:
+            ndot = ((nrm[0, r0:r1, None] * nrm[0]
+                     + nrm[1, r0:r1, None] * nrm[1])
+                    + nrm[2, r0:r1, None] * nrm[2])
+            ssum = n2[r0:r1, None] + n2[None, :]
+            dminus = torch.sqrt(torch.clamp(ssum - 2.0 * ndot, min=0.0))
+            dplus = torch.sqrt(torch.clamp(ssum + 2.0 * ndot, min=0.0))
+            nd = torch.minimum((dminus - nang).abs(), (dplus - nang).abs())
+            both = (n2[r0:r1, None] > 0) & (n2[None, :] > 0)
+            hit &= ~both | (nd <= nthr)
+        if rcscore is not None:
+            hit &= (score[0, r0:r1, None] + score[1]) >= 2.0
+        if cmax is not None:
+            dist = torch.sqrt(torch.clamp(d2, min=0.0))
+            hit &= (seg[None, :] - seg[r0:r1, None]) >= cmax * dist
         rc[r0:r1] = hit.sum(dim=1, dtype=torch.int32)
         # first k hits of each segment, in column order: the k smallest
         # hit column ids (misses keyed past every column)
@@ -120,13 +255,30 @@ def rowcap_capture_plain(q: torch.Tensor, geo: torch.Tensor, row_cap: int,
     return cols, rc, h
 
 
+def _ptr(t) -> int | None:
+    """Data pointer of a tensor, None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
 def rowcap_capture(q: torch.Tensor, lo2, hi2, row_cap: int, inv=0.0,
-                   cell=1.0, emit_hash: bool = False):
+                   cell=1.0, emit_hash: bool = False, *, normals=None,
+                   aux=None, rcscore=None, nang=0.0, nthr=0.0, cmax=None,
+                   bounds=None):
     """One base edge's band capture over the (n, 3) float32 points ``q``.
 
     ``lo2``/``hi2`` bound the squared distance band; ``inv``/``cell``
     define the join hash of edge 0 (``emit_hash``). Scalars may be
     Python floats or 0-d tensors (on q's device, so no host sync).
+
+    Filters (see :func:`rowcap_capture_plain` for their arithmetic):
+    ``normals`` (n, 3) with the base edge's normal angle ``nang`` and
+    the threshold ``nthr``; ``rcscore`` (2, n) from
+    :func:`filter_scores`; ``cmax`` (the cosine of the maximum angle)
+    turns the angle test on. ``aux`` (2, n) carries ``pos . seg`` and
+    ``|n|^2`` for the normal and angle tests. ``bounds`` = (rowb, colb)
+    from :func:`reject_bounds` turns the kernel's tile-pair rejection
+    on; the output is the same with or without it.
+
     Returns ``(cols (n_pad, row_cap) int32, rc (n_pad,) int32)``, plus
     ``h (n_pad, row_cap) int32`` with ``emit_hash``.
     """
@@ -137,14 +289,42 @@ def rowcap_capture(q: torch.Tensor, lo2, hi2, row_cap: int, inv=0.0,
     if row_cap != slots_for(n, row_cap):
         raise ValueError("rowcap_capture: row_cap must be pre-rounded via "
                          "slots_for()")
+    use_normals = normals is not None
+    use_rowcol = rcscore is not None
+    use_angle = cmax is not None
+    filtered = use_normals or use_rowcol or use_angle
+    if (use_normals or use_angle) and aux is None:
+        raise ValueError("rowcap_capture: the normal and angle tests "
+                         "need aux")
     dev = q.device
-    geo = torch.stack([_scalar(v, dev) for v in (lo2, hi2, inv, cell)])
+    n_pad = _round_up(n, 2048)
+    rowb, colb = (None, None) if bounds is None else bounds
+    for name, t, shape in (("normals", normals, (n, 3)),
+                           ("aux", aux, (2, n)),
+                           ("rcscore", rcscore, (2, n)),
+                           ("bounds[0]", rowb, (n_pad // ROW_TILE, 4)),
+                           ("bounds[1]", colb, (n_pad // COL_TILE, 4))):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != shape
+                              or t.device != dev):
+            raise ValueError(f"rowcap_capture: {name} must be float32 "
+                             f"{shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     if dev.type == "cpu":
-        return rowcap_capture_plain(q, geo, row_cap, emit_hash)
+        return rowcap_capture_plain(q, lo2, hi2, row_cap, inv, cell,
+                                    emit_hash, normals=normals, aux=aux,
+                                    rcscore=rcscore, nang=nang, nthr=nthr,
+                                    cmax=cmax)
     if dev.type != "cuda":
         raise ValueError(f"rowcap_capture: unsupported device {dev}")
+    vals = [lo2, hi2, inv, cell]
+    if filtered:
+        vals += [nang, nthr, 0.0 if cmax is None else cmax]
+    geo = torch.stack([_scalar(v, dev) for v in vals])
     q = q.contiguous()
-    n_pad = _round_up(n, 2048)
+    normals, aux, rcscore, rowb, colb = (
+        None if t is None else t.contiguous()
+        for t in (normals, aux, rcscore, rowb, colb))
     seg_q = row_cap // (n_pad // COL_TILE)
     cols = torch.empty((n_pad, row_cap), dtype=torch.int32, device=dev)
     rc = torch.zeros(n_pad, dtype=torch.int32, device=dev)
@@ -155,70 +335,133 @@ def rowcap_capture(q: torch.Tensor, lo2, hi2, row_cap: int, inv=0.0,
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.rowcap_capture(
             q.data_ptr(), n, n_pad, geo.data_ptr(), seg_q, row_cap,
-            int(emit_hash), cols.data_ptr(), rc.data_ptr(),
-            None if h is None else h.data_ptr(), stream),
+            int(emit_hash), _ptr(normals), _ptr(aux), _ptr(rcscore),
+            int(use_normals), int(use_rowcol), int(use_angle),
+            _ptr(rowb), _ptr(colb), int(rowb is not None),
+            cols.data_ptr(), rc.data_ptr(), _ptr(h), stream),
             "rowcap_capture")
     rowcap_capture.launches += 1
+    rowcap_capture.filtered_launches += int(filtered)
     return (cols, rc, h) if emit_hash else (cols, rc)
 
 
 #: kernel launches since the count was last reset (CUDA path only)
 rowcap_capture.launches = 0
+#: of those, the launches with at least one pair filter on
+rowcap_capture.filtered_launches = 0
 
 
 def _lib():
     lib = _build.load("rowcap")
     fn = lib.rowcap_capture
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, p, i, i, i, p, p, p, i, i, i, p, p, i,
+                       p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _norm3(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
-                      + v[..., 2] * v[..., 2])
+def edge_args(pos, base_pos, pair_distance_epsilon, normal=None,
+              rgb=None, base_norm=None, base_rgb=None,
+              max_normal_difference: float = -1.0,
+              max_color_distance: float = -1.0,
+              max_translation_distance: float = -1.0,
+              max_angle: float = -1.0) -> list:
+    """The band and filter arguments of both base edges' captures: two
+    dicts of keyword arguments (``lo2``, ``hi2`` and the active
+    filters' planes and scalars) for :func:`rowcap_capture` and
+    :func:`rowcap_capture_plain`, built as ``rowcap_pallas.py:502-579``
+    builds them. See :func:`extract_pairs_rowcap_both`."""
+    dev = pos.device
+    eps = _scalar(pair_distance_epsilon, dev)
+    dists = torch.stack([_norm3(base_pos[0] - base_pos[1]),
+                         _norm3(base_pos[2] - base_pos[3])])
+    lo = torch.clamp(dists - eps, min=0.0)
+    hi = dists + eps
+    use_normals = max_normal_difference > 0
+    use_angle = max_angle > 0
+    if use_normals:
+        n2 = (normal[:, 0] * normal[:, 0]
+              + normal[:, 1] * normal[:, 1]) + normal[:, 2] * normal[:, 2]
+        nang = torch.stack([_norm3(base_norm[0] - base_norm[1]),
+                            _norm3(base_norm[2] - base_norm[3])])
+    out = []
+    for e, (e0, e1) in enumerate(((0, 1), (2, 3))):
+        kw = dict(lo2=lo[e] * lo[e], hi2=hi[e] * hi[e])
+        if use_normals or use_angle:
+            row0 = torch.zeros_like(pos[:, 0])
+            if use_angle:
+                seg = base_pos[e1] - base_pos[e0]
+                seg = seg / torch.clamp(_norm3(seg), min=1e-30)
+                row0 = ((pos[:, 0] * seg[0] + pos[:, 1] * seg[1])
+                        + pos[:, 2] * seg[2])
+                kw["cmax"] = math.cos(max_angle * math.pi / 180.0)
+            kw["aux"] = torch.stack(
+                [row0, n2 if use_normals else torch.zeros_like(row0)])
+        if use_normals:
+            kw.update(normals=normal, nang=nang[e],
+                      nthr=0.5 * max_normal_difference * math.pi / 180.0)
+        if max_color_distance > 0 or max_translation_distance > 0:
+            kw["rcscore"] = filter_scores(
+                pos, rgb, base_pos, base_rgb, e0, e1, max_color_distance,
+                max_translation_distance)
+        out.append(kw)
+    return out
 
 
 def extract_pairs_rowcap_both(pos, base_pos, pair_distance_epsilon,
                               row_cap: int, invariant1=None,
-                              cell_size: float | None = None):
+                              cell_size: float | None = None,
+                              normal=None, rgb=None, base_norm=None,
+                              base_rgb=None,
+                              max_normal_difference: float = -1.0,
+                              max_color_distance: float = -1.0,
+                              max_translation_distance: float = -1.0,
+                              max_angle: float = -1.0,
+                              tile_reject: bool = True, bounds=None):
     """Both base edges' band captures (one launch per edge; edge 0 also
     emits the join hash when ``invariant1``/``cell_size`` are given).
 
-    The return contract of the JAX package's
+    The contract of the JAX package's
     ``extract_pairs_rowcap_pallas_both``: per edge ``(cols, valid,
     count, dropped)`` with ``cols`` the flattened ``max(cols, 0)``
     table (slot ``s`` holds the ordered pair ``(s // row_cap,
     cols[s])``), ``count`` the exact pre-cap hit count and ``dropped``
     the hits that missed the table; then ``h1`` (n_pad * row_cap,)
-    int32 when the hash is requested. Only the unfiltered capture is
-    ported (see the module docstring).
+    int32 when the hash is requested.
+
+    The normal, color, translation and angle filters (off at their -1
+    defaults) are the reference's per-pair predicates in the ordered
+    form of ops/pairs.ordered_pair_mask (planes from :func:`edge_args`).
+    ``tile_reject`` turns the kernel's tile-pair rejection on, with
+    ``bounds`` (from :func:`reject_bounds` of ``pos``) computed here
+    when not given.
 
     pos: (n, 3) centered Q samples. base_pos: (4, 3) — edges (0, 1)
     and (2, 3). Distance band: squared-vs-squared around each edge's
     length (ref:pairCreationFunctor.h:151-160).
     """
     emit_hash = invariant1 is not None
-    eps = _scalar(pair_distance_epsilon, pos.device)
-    dists = torch.stack([_norm3(base_pos[0] - base_pos[1]),
-                         _norm3(base_pos[2] - base_pos[3])])
-    lo = torch.clamp(dists - eps, min=0.0)
-    hi = dists + eps
+    if not tile_reject or pos.device.type != "cuda":
+        bounds = None
+    elif bounds is None:
+        bounds = reject_bounds(pos)
+    args = edge_args(pos, base_pos, pair_distance_epsilon, normal, rgb,
+                     base_norm, base_rgb, max_normal_difference,
+                     max_color_distance, max_translation_distance,
+                     max_angle)
     results = []
     h1 = None
-    for e in range(2):
+    for e, kw in enumerate(args):
         if emit_hash and e == 0:
             cols, rc, h = rowcap_capture(
-                pos, lo[e] * lo[e], hi[e] * hi[e], row_cap,
-                inv=invariant1, cell=cell_size, emit_hash=True)
+                pos, row_cap=row_cap, inv=invariant1, cell=cell_size,
+                emit_hash=True, bounds=bounds, **kw)
             h1 = h.reshape(-1)
         else:
-            cols, rc = rowcap_capture(pos, lo[e] * lo[e], hi[e] * hi[e],
-                                      row_cap)
+            cols, rc = rowcap_capture(pos, row_cap=row_cap, bounds=bounds,
+                                      **kw)
         ce = cols.reshape(-1)
         valid = ce >= 0
         count = rc.sum(dtype=torch.int64)

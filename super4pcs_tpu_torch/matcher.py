@@ -24,8 +24,8 @@ escalation compile (escalation here is a synchronous rebuild of the
 step at the wider factor), the two-steps-in-flight pipelining, the phase
 probes and the roofline model. Not ported yet (they raise
 ``NotImplementedError``): similarity mode (``estimate_scale``), the
-banded and allpairs engines, HEALPix bins, filtered captures at
-nq > 2048, and bases-axis sharding (``mesh``). See ROADMAP.md.
+banded and allpairs engines, HEALPix bins, and bases-axis sharding
+(``mesh``). See ROADMAP.md.
 
 Randomness comes from a ``torch.Generator`` reseeded per step from
 ``(random_seed, step index)``, so a resumed run draws the trials an
@@ -90,14 +90,6 @@ def resolve_bases_per_step(opts: Options, nq: int) -> int:
     return b
 
 
-def _kernel_filtered(opts: Options) -> bool:
-    """Whether any per-pair filter is active."""
-    return (opts.max_normal_difference > 0
-            or opts.max_color_distance > 0
-            or opts.max_translation_distance > 0
-            or opts.max_angle > 0)
-
-
 def resolve_pair_engine(opts: Options, nq: int) -> str:
     """Effective pair-extraction engine (see Options.pair_engine): dense
     masking up to nq = 2048, the rowcap capture kernel up to 65536 (the
@@ -124,8 +116,10 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
     """Build the batched trial function of one step.
 
     Returns (try_bases, (k_pairs, k_quads, n_cands)), where
-    ``try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-    q_rgb)`` runs one trial per base draw (see ops/select.py).
+    ``try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
+    q_bounds)`` runs one trial per base draw (see ops/select.py);
+    ``q_bounds`` are the Q tile bounds of the capture kernel's tile-pair
+    rejection (``rowcap.reject_bounds``), or None.
     """
     if opts.bases_per_step is None:
         opts = opts.replace(bases_per_step=resolve_bases_per_step(opts, nq))
@@ -182,16 +176,13 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
         dense_fn = (extract_pairs_dense_rowcap
                     if max(k_pairs // nq, 1) <= 64 else extract_pairs)
 
-        def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1):
+        def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1,
+                         bounds):
             return (dense_fn(pos, normal, rgb, bpos, bnorm, brgb, 0, 1,
                              eps_pairs, cfg, capacity=k_pairs),
                     dense_fn(pos, normal, rgb, bpos, bnorm, brgb, 2, 3,
                              eps_pairs, cfg, capacity=k_pairs))
     else:
-        if _kernel_filtered(opts):
-            raise _not_ported(
-                "per-pair filters at nq > 2048 (the filtered capture "
-                "kernel K2d)")
         join_row_cap = opts.pair_row_cap or min(nq, max(32, _round_up(
             5 * k_pairs // (2 * nq), 32)))
         if opts.pair_row_cap is None and nq > 32768:
@@ -199,11 +190,18 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
             join_row_cap = min(join_row_cap, 128)
         join_row_cap = rowcap_kernel.slots_for(nq, join_row_cap)
 
-        def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1):
+        def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1,
+                         bounds):
             # edge 0 also emits the join hash of every captured slot
             return rowcap_kernel.extract_pairs_rowcap_both(
                 pos, bpos, eps_pairs, join_row_cap,
-                invariant1=inv1, cell_size=cell_size)
+                invariant1=inv1, cell_size=cell_size,
+                normal=normal, rgb=rgb, base_norm=bnorm, base_rgb=brgb,
+                max_normal_difference=opts.max_normal_difference,
+                max_color_distance=opts.max_color_distance,
+                max_translation_distance=opts.max_translation_distance,
+                max_angle=opts.max_angle,
+                tile_reject=opts.rowcap_tile_reject, bounds=bounds)
 
     qb_default = opts.join_q_budget or 8192
     probe_budget = opts.join_probe_budget or (
@@ -212,7 +210,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
          * congruent.probe_window(dist_thr, cell_size) ** 3) // 8)
 
     def try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-                  q_rgb):
+                  q_rgb, q_bounds=None):
         ids, inv1, inv2, bvalid = select.select_base(p_pos, diam, *draws)
         base_pos = p_pos[ids]                            # (B, 4, 3)
         base_norm = p_norm[ids]
@@ -230,7 +228,8 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
         zero = torch.zeros((), dtype=torch.int64, device=q_pos.device)
         for b in range(ids.shape[0]):
             ext = extract_both(q_pos, q_norm, q_rgb, base_pos[b],
-                               base_norm[b], base_rgb[b], inv1[b])
+                               base_norm[b], base_rgb[b], inv1[b],
+                               q_bounds)
             (pairs1, v1, c1, d1), (pairs2, v2, c2, d2) = ext[0], ext[1]
             thash = ext[2] if len(ext) > 2 else None
             if dense_join:
@@ -273,8 +272,8 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
 def build_step(opts: Options, nq: int, cone_tol: float):
     """Build the RANSAC device step.
 
-    ``step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb)``
-    draws ``bases_per_step`` bases from the generator, runs their
+    ``step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
+    q_bounds=None)`` draws ``bases_per_step`` bases from the generator, runs their
     trials, compacts the valid candidates, verifies them
     (``lcp_scores_two_stage``) and returns the best one's dict of
     tensors (the JAX package's step outputs).
@@ -291,11 +290,12 @@ def build_step(opts: Options, nq: int, cone_tol: float):
     # selected one's exact-delta score is reported apart
     rank_delta = delta * opts.search_delta_factor
 
-    def step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb):
+    def step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
+             q_bounds=None):
         draws = select.draw_base_indices(gen, p_pos.shape[0], b,
                                          opts.n_triangle_trials)
         tb = try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-                       q_rgb)
+                       q_rgb, q_bounds)
         flat_t = tb["transform"].reshape(-1, 4, 4)
         flat_v = tb["cvalid"].reshape(-1)
         # compact the valid candidates before the (expensive) scoring
@@ -488,8 +488,9 @@ class Match4PCSBase:
         sampled_q = sampling.sample_for_matching(
             Q, opts.delta, opts.sample_size, truncate=True, rng=rng)
         # spatially order the Q samples (kd median-split blocks): a
-        # fixed permutation is semantically transparent, and it is the
-        # order tile-pair rejection in the capture kernel will need
+        # fixed permutation is semantically transparent, and it makes
+        # the capture kernel's 256- and 512-point tiles compact, which
+        # its tile-pair rejection needs
         sampled_q = sampled_q.take(sampling.kd_argsort(sampled_q.pos))
         self._sampled_p_world = sampled_p
         self._sampled_q_world = sampled_q
@@ -545,7 +546,7 @@ class Match4PCSBase:
         self._stats = {
             "pairs_overflow": 0, "quads_overflow": 0,
             "cands_overflow": 0, "n_congruent": 0, "cell_dropped": 0,
-            "q_sampled_out": 0,
+            "q_sampled_out": 0, "n_pairs": 0,
         }
 
         # best-so-far state (ref:match4pcsBase.h:131-161)
@@ -557,13 +558,19 @@ class Match4PCSBase:
         self._congruent_ids = np.zeros(4, dtype=np.int64)
 
         self._build_step()
+        rowcap = (resolve_pair_engine(self._opts_eff(), len(sampled_q))
+                  == "rowcap")
+        # the Q tile bounds of the capture's tile-pair rejection: Q is
+        # fixed for the run, so they are computed once
+        self._q_bounds = (rowcap_kernel.reject_bounds(self._d_q_pos)
+                          if rowcap and opts.rowcap_tile_reject
+                          and dev.type == "cuda" else None)
         # build the CUDA kernels of this engine before any timed phase
         # (the analog of the JAX package's off-clock compile)
         tc = time.perf_counter()
         if dev.type == "cuda":
             lcp_kernel._lib()
-            if resolve_pair_engine(self._opts_eff(), len(sampled_q)) \
-                    == "rowcap":
+            if rowcap:
                 rowcap_kernel._lib()
         self._stats["compile_seconds"] = time.perf_counter() - tc
 
@@ -609,7 +616,7 @@ class Match4PCSBase:
         out = self._step_fn(
             self._gen, self._max_base_diameter,
             self._d_p_pos, self._d_p_norm, self._d_p_rgb,
-            self._d_q_pos, self._d_q_norm, self._d_q_rgb)
+            self._d_q_pos, self._d_q_norm, self._d_q_rgb, self._q_bounds)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     # ------------------------------------------------------------------
@@ -645,6 +652,8 @@ class Match4PCSBase:
 
             self._stats["n_congruent"] += int(out["n_congruent"])
             counts = out["pair_counts"]
+            # exact pre-cap pair count of both base edges
+            self._stats["n_pairs"] += int(counts[:, :2].sum())
             # overflow counters are DROPPED-ITEM counts
             self._stats["pairs_overflow"] += int(counts[:, 4].sum())
             self._stats["quads_overflow"] += int(

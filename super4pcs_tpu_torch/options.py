@@ -19,8 +19,6 @@ ported; see ROADMAP.md):
   XLA ``approx_max_k`` rowcap capture, which is not ported. The rowcap
   engine always runs the hand-written capture kernel
   (``kernels/rowcap.py``).
-- ``rowcap_tile_reject``: the capture kernel has no tile-pair rejection
-  yet. Its output is identical either way, so only speed is affected.
 - ``steps_per_dispatch`` and ``sharded_gather_telemetry``: fused
   multi-step dispatch and bases-axis sharding are not ported.
 - ``phase_timing``: the telescoped phase probes are not ported.
@@ -105,8 +103,8 @@ class Options:
     rowcap_kernel: str = "auto"
     #: Tile-pair band rejection inside the capture kernel (a
     #: bounding-sphere test per 256-row x 512-column tile pair against
-    #: the distance band). Not implemented in the port's kernel yet, so
-    #: it has no effect; the captured tables are identical either way.
+    #: the distance band). The captured tables are identical either
+    #: way; it only skips work, on the card (the CPU path never skips).
     rowcap_tile_reject: bool = True
     #: Cosine tolerance of the Super4PCS pair-direction cone filter. The
     #: reference realizes this filter as a 7^3-bin direction-grid cone

@@ -12,6 +12,7 @@ import torch
 import super4pcs_tpu_torch as s4t
 from super4pcs_tpu_torch.kernels import lcp as k1
 from super4pcs_tpu_torch.kernels import rowcap as k2
+from super4pcs_tpu_torch.ops import sampling
 
 pytestmark = pytest.mark.cuda
 
@@ -63,13 +64,98 @@ def test_rowcap_kernel_bit_identical_to_plain(dev, n, cap, emit):
     before = k2.rowcap_capture.launches
     got = k2.rowcap_capture(q, geo[0], geo[1], row_cap, inv=geo[2],
                             cell=geo[3], emit_hash=emit)
-    ref = k2.rowcap_capture_plain(q, geo, row_cap, emit)
+    ref = k2.rowcap_capture_plain(q, geo[0], geo[1], row_cap, geo[2],
+                                  geo[3], emit)
     torch.cuda.synchronize()
     assert len(got) == len(ref) == (3 if emit else 2)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert int(got[1].sum()) > 0
     assert k2.rowcap_capture.launches == before + 1
+
+
+def _kd_sphere(rng, n, dev):
+    """Bumpy sphere in kd order (the matcher's Q order), radial normals
+    and colors abs(pos) * 200, on the card."""
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pos = (v * (1 + 0.2 * np.sin(4 * v[:, :1]))).astype(np.float32)
+    pos = pos[sampling.kd_argsort(pos)]
+    nrm = pos / np.linalg.norm(pos, axis=1, keepdims=True)
+    rgb = np.abs(pos) * 200
+    return (torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (pos, nrm, rgb))
+
+
+@pytest.mark.parametrize("filters", [
+    dict(max_normal_difference=20.0),
+    dict(max_color_distance=60.0, max_translation_distance=1.3),
+    dict(max_angle=80.0),
+    dict(max_normal_difference=20.0, max_color_distance=60.0,
+         max_translation_distance=1.3, max_angle=80.0)])
+@pytest.mark.parametrize("n", [2500, 9000])
+def test_filtered_rejected_capture_bit_identical_to_plain(dev, n, filters):
+    """Both edges with filters, rejection on and off, against the plain
+    version fed the same planes: every table bit-identical, and the
+    filtered launches counted."""
+    rng = np.random.default_rng(n)
+    q, nrm, rgb = _kd_sphere(rng, n, dev)
+    ids = torch.as_tensor(rng.choice(n, 4, replace=False), device=dev)
+    row_cap = k2.slots_for(n, 40)
+    args = (q, q[ids], 0.02, row_cap)
+    kw = dict(invariant1=torch.tensor(0.4, device=dev), cell_size=0.04,
+              normal=nrm, rgb=rgb, base_norm=nrm[ids], base_rgb=rgb[ids],
+              **filters)
+    before = (k2.rowcap_capture.launches,
+              k2.rowcap_capture.filtered_launches)
+    on = k2.extract_pairs_rowcap_both(*args, tile_reject=True, **kw)
+    off = k2.extract_pairs_rowcap_both(*args, tile_reject=False, **kw)
+    torch.cuda.synchronize()
+    assert k2.rowcap_capture.launches == before[0] + 4
+    assert k2.rowcap_capture.filtered_launches == before[1] + 4
+    plain = k2.extract_pairs_rowcap_both(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args),
+        **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+    for a, b, c in zip(on, off, plain):
+        for xa, xb, xc in zip(*(t if isinstance(t, tuple) else (t,)
+                                for t in (a, b, c))):
+            assert torch.equal(xa, xb)
+            assert torch.equal(xa.cpu(), xc)
+    assert int(on[0][2]) > 0
+
+
+def test_rejection_fires_on_kd_ordered_q(dev):
+    """The bounds of a kd-ordered cloud reject most tile pairs of a thin
+    band, and the kernel with rejection equals the plain version."""
+    rng = np.random.default_rng(3)
+    q, _, _ = _kd_sphere(rng, 8192, dev)
+    rowb, colb = k2.reject_bounds(q)
+    lo2, hi2 = torch.tensor(0.09, device=dev), torch.tensor(0.1, device=dev)
+    assert float(k2.tile_reject_mask(rowb, colb, lo2, hi2).float().mean()) \
+        > 0.3
+    row_cap = k2.slots_for(8192, 160)
+    got = k2.rowcap_capture(q, lo2, hi2, row_cap, bounds=(rowb, colb))
+    ref = k2.rowcap_capture_plain(q, lo2, hi2, row_cap)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,np_", [(1, 1), (700, 3000), (4097, 2100)])
+def test_min_sq_dists_bit_identical_to_plain(dev, m, np_):
+    """K4a/K4b: K1 with the identity transform against the direct plain
+    version."""
+    rng = np.random.default_rng(m + np_)
+    tq = torch.as_tensor(rng.uniform(-1, 1, (m, 3)), dtype=torch.float32,
+                         device=dev)
+    p = torch.as_tensor(rng.uniform(-1, 1, (np_, 3)), dtype=torch.float32,
+                        device=dev)
+    before = k1.lcp_min_d2.launches
+    got = k1.min_sq_dists(tq, p)
+    ref = k1.min_sq_dists_plain(tq, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert k1.lcp_min_d2.launches == before + 1
 
 
 def test_register_recipe_on_the_card(dev):

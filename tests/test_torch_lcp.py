@@ -130,3 +130,48 @@ def test_two_stage_selects_what_jax_selects(rng):
     s, i = torch_lcp.lcp_scores_two_stage(_t(tr[:5]), _t(q), _t(p), eps,
                                           top_k=12)
     assert i.tolist() == list(range(5))
+
+
+def _interpreted():
+    return mock.patch.object(lcp_pallas.pl, "pallas_call",
+                             functools.partial(lcp_pallas.pl.pallas_call,
+                                               interpret=True))
+
+
+def test_lcp_min_d2_matches_streamed_kernel_interpreted(rng):
+    """K3: the streamed-P TPU kernel (candidate_min_sq_dists_streamed, in
+    interpret mode) has no separate counterpart: lcp_min_d2 streams P at
+    any Np. Np spans three P tiles (1024). Tolerance 1e-6 absolute, as
+    for K1 (the Pallas kernel applies the transform as a matrix
+    product)."""
+    p = rng.uniform(-1, 1, (2500, 3)).astype(np.float32)
+    q = rng.uniform(-1, 1, (200, 3)).astype(np.float32)
+    tr = _transforms(rng, 6)
+    with _interpreted():
+        ref = np.asarray(lcp_pallas.candidate_min_sq_dists_streamed(
+            jnp.asarray(tr), jnp.asarray(q), jnp.asarray(p)))
+    got = k1.lcp_min_d2(_t(tr), _t(q), _t(p)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_min_sq_dists_matches_resident_and_streamed_kernels(rng):
+    """K4a and K4b: min_sq_dists (K1 with one identity transform on the
+    card, its plain version here) against min_sq_dists and
+    min_sq_dists_streamed in interpret mode, Np above one P tile.
+    Tolerance 1e-6 absolute (XLA may contract the squares' sum into an
+    FMA); the identity path equals the direct plain version bit for
+    bit."""
+    p = rng.uniform(-1, 1, (2100, 3)).astype(np.float32)
+    tq = rng.uniform(-1, 1, (700, 3)).astype(np.float32)
+    with _interpreted():
+        ref_a = np.asarray(lcp_pallas.min_sq_dists(jnp.asarray(tq),
+                                                   jnp.asarray(p)))
+        ref_b = np.asarray(lcp_pallas.min_sq_dists_streamed(
+            jnp.asarray(tq), jnp.asarray(p)))
+    got = k1.min_sq_dists(_t(tq), _t(p))
+    assert got.shape == (700,) and got.dtype == torch.float32
+    for ref in (ref_a, ref_b):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+    eye = torch.eye(4)[None]
+    assert torch.equal(k1.lcp_min_d2_plain(eye, _t(tq), _t(p))[0], got)
+    assert torch.equal(k1.min_sq_dists_plain(_t(tq), _t(p)), got)

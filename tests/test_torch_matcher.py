@@ -88,6 +88,80 @@ def test_rowcap_engine_known_pose():
     assert rot_diff <= 0.2 and tr_diff <= 0.1
 
 
+@pytest.fixture(scope="module")
+def filtered_pair():
+    """A 2300-point bumpy sphere with radial normals and colors
+    abs(pos) * 200 (tools/parity_configs.py:105-121), and a rigidly
+    moved copy carrying the rotated normals and the same colors."""
+    pos = _bumpy(np.random.default_rng(5), 2300)
+    normal = pos / np.linalg.norm(pos, axis=1, keepdims=True)
+    rgb = (np.abs(pos) * 200).astype(np.float32)
+    ang = 0.8
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    t = np.float32([.1, -.05, .2])
+    q = (pos @ R.T + t).astype(np.float32)
+    qn = (normal @ R.T).astype(np.float32)
+    gt = np.eye(4)
+    gt[:3, :3] = R.T
+    gt[:3, 3] = -R.T @ t
+    return (pos, normal, rgb), (q, qn, rgb), gt
+
+
+_FILTERED = dict(delta=0.03, sample_size=2300, max_time_seconds=50,
+                 bases_per_step=4, verify_top_k=256, max_candidates=2048,
+                 max_normal_difference=20.0, max_color_distance=60.0)
+
+
+def test_filtered_rowcap_registration(filtered_pair, monkeypatch):
+    """The filtered registration (BASELINE Config 3's normal and color
+    filters) through the rowcap engine at nq = 2300 on the CPU: the
+    capture receives the filters and Options.rowcap_tile_reject, and the
+    port clears LCP > 0.95, rotDiff <= 0.2 and trDiff <= 0.1."""
+    (p, pn, pc), (q, qn, qc), gt = filtered_pair
+    seen = []
+    capture = tmatcher.rowcap_kernel.extract_pairs_rowcap_both
+
+    def recorder(*a, **kw):
+        seen.append(kw)
+        return capture(*a, **kw)
+
+    monkeypatch.setattr(tmatcher.rowcap_kernel, "extract_pairs_rowcap_both",
+                        recorder)
+    opts = s4t.Options(pair_engine="rowcap", rowcap_tile_reject=False,
+                       **_FILTERED).configure_overlap(0.9)
+    assert tmatcher.resolve_pair_engine(opts, 2300) == "rowcap"
+    res = s4t.MatchSuper4PCS(opts, device="cpu").compute_transformation(
+        s4t.PointCloud(p, normal=pn, rgb=pc),
+        s4t.PointCloud(q, normal=qn, rgb=qc))
+    assert seen and all(kw["tile_reject"] is False
+                        and kw["max_normal_difference"] == 20.0
+                        and kw["max_color_distance"] == 60.0
+                        and kw["normal"] is not None for kw in seen)
+    assert res.score > 0.95
+    rot_diff, tr_diff = s4t.reference_pose_diff(res.transform, gt)
+    assert rot_diff <= 0.2 and tr_diff <= 0.1
+    # the filters cut the pairs the capture finds
+    assert 0 < res.stats["n_pairs"]
+
+
+def test_filtered_registration_jax_package_same_gates(filtered_pair):
+    """The JAX package on the same filtered fixture clears the same
+    gates. Its rowcap step (the XLA approx_max_k capture on the CPU)
+    takes minutes to compile, so it runs its dense engine here, which
+    applies the same filters; parity of the two packages is statistical
+    (their random draws differ), so both must pass."""
+    (p, pn, pc), (q, qn, qc), gt = filtered_pair
+    opts = s4j.Options(pair_engine="dense", search_escalation_stages=0,
+                       **_FILTERED).configure_overlap(0.9)
+    res = s4j.MatchSuper4PCS(opts).compute_transformation(
+        s4j.PointCloud(p, normal=pn, rgb=pc),
+        s4j.PointCloud(q, normal=qn, rgb=qc))
+    assert res.score > 0.95
+    rot_diff, tr_diff = s4t.reference_pose_diff(res.transform, gt)
+    assert rot_diff <= 0.2 and tr_diff <= 0.1
+
+
 def test_resume_from_jax_state(recipe):
     """The JAX matcher's exported state, with its trial budget spent,
     resumes in the port unchanged: same transform, same global
@@ -130,8 +204,9 @@ def test_not_ported_paths_raise():
                                device="cpu").compute_transformation(pts, pts)
     with pytest.raises(NotImplementedError):
         s4t.MatchSuper4PCS(s4t.Options(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):       # filtered capture K2d
-        tmatcher.build_step(s4t.Options(max_angle=10.0), 4096, 0.3)
+    with pytest.raises(NotImplementedError):       # HEALPix bins
+        tmatcher.build_step(s4t.Options(direction_bins="healpix"), 4096,
+                            0.3)
     with pytest.raises(NotImplementedError):
         tmatcher.resolve_pair_engine(s4t.Options(), 70000)
     empty = s4t.MatchSuper4PCS(s4t.Options(), device="cpu") \
