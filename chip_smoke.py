@@ -10,37 +10,53 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from csrc/ (one nvcc per source, started
    together), with the build time;
-3. K1 (LCP min-distance) against its plain PyTorch version at the main
-   path's shapes: the exact stage (64 candidates x 8192 queries x the
-   headline's sampled P) and the coarse stages; torch.cdist + amin at
-   the coarse shape as the library yardstick;
+3. K1 (LCP min-distance) at the main path's verify shapes: the exact
+   stage (64 candidates x 8192 queries x the headline's sampled P), the
+   mid stage (2048 x 512 x P[::10]) and the coarse stages (4096 and
+   16384 x 64 x P[::37]). The grid-pruned lcp_min_d2_within (the main
+   path's kernel) equals its plain walk and the brute-force contract
+   where(lcp_min_d2_plain <= eps^2, ., inf) bit for bit, with the hit
+   count of the brute-force kernel; its largest error where both are
+   finite and its non-finite mismatches, its time, the index build's
+   device time, the pair tests it made and two bounds (the pruned work,
+   the brute force). The brute-force lcp_min_d2 against its plain version
+   at the exact and coarse shapes; torch.cdist + amin at the coarse
+   shape as the library yardstick;
 3b. K1 at the 1M config's shapes (bench.py:109-123 sampled as the
    matcher does: Np = 530,895, nq = 16384), which the TPU verified with
-   its streamed-P kernel K3; then min_sq_dists (K1 with the identity
-   transform, for K4a/K4b) against its plain version;
+   its streamed-P kernel K3: the brute force against its plain version,
+   lcp_min_d2_within at the exact stage against the contract; then
+   min_sq_dists (K1 with the identity transform, for K4a/K4b) against
+   its plain version;
 4. K2 (band capture) against its plain version at n = 8192,
    row_cap = 160, edge 0 with the join hash: cols/rc/h bit-identical,
-   then the same with tile-pair rejection on;
+   then the same with tile-pair rejection on (the one-thread-per-row
+   kernel's times beside);
 4a. K2 with all four pair filters on both edges of the headline's Q
    samples (n = 8192 and 32768), rejection on and off, bit-identical to
    each other and to the plain version, with the share of tile pairs
    rejected;
 5. the headline registration — the 100k-point noisy bumpy-sphere pair
    of bench.py, Options(delta=0.01, sample_size=8192) through
-   MatchSuper4PCS on the GPU (rowcap engine, rejection on). Both kernels
-   must have launched; LCP >= 0.7 and the known pose within
+   MatchSuper4PCS on the GPU (rowcap engine, rejection on).
+   lcp_min_d2_within and rowcap_capture must have launched; LCP >= 0.7
+   and the known pose within
    rotDiff <= 0.2 / trDiff <= 0.1;
 5b. the filtered registration at the same width: radial normals and
    abs(pos) * 200 colors (tools/parity_configs.py:105-121), normal and
    color filters of BASELINE Config 3; same gates, filtered K2 launches;
-6. the 500-point known-pose recipe on the GPU (dense engine, K1 only);
+6. the 500-point known-pose recipe on the GPU (dense engine,
+   lcp_min_d2_within only);
 7. a profile of headline steps: device busy and idle share per step,
-   kernels per step, time by kernel;
+   kernels per step, time by kernel, with the kernels of K1's index
+   build (the wrapper's "grid_index" range) counted under K1: the
+   verify's ms per step, kernel and index;
 8. one JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
 
-Kernel times are device times from torch.profiler; the plain versions
-and the library call are timed with CUDA events.
+Kernel times are device times from torch.profiler (K2's includes its
+prep kernel, which writes the padded column planes once per call); the
+plain versions and the library call are timed with CUDA events.
 
 With ``--seeds 1,3,5,7,11`` it then also runs the headline and the
 filtered registration once per seed with tile-pair rejection on and
@@ -53,6 +69,7 @@ are set to 0 just before it and read just after.
 Exits with code 2 and prints no result when no CUDA device is present.
 """
 
+import collections
 import concurrent.futures
 import json
 import os
@@ -75,7 +92,16 @@ K2_FILTER_OPS = {"normals": 19, "rowcol": 2, "angle": 5}
 K2_HASH_OPS = 15
 
 K1_NAME = "lcp_min_d2_kernel"
+K1W_NAME = "lcp_min_d2_within_kernel"
 K2_NAME = "rowcap_capture_kernel"
+K2_NAMES = (K2_NAME, "rowcap_prep_kernel")
+#: the previous, one-thread-per-row capture kernel, ms per launch on an
+#: NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table), printed
+#: beside the current kernel's times: the headline base (rejection on,
+#: off) and the filtered edges (n, edge) with rejection on
+K2_ROW_THREAD_MS = {"headline": (0.089, 0.104), (8192, 0): 0.132,
+                    (8192, 1): 0.132, (32768, 0): 0.434,
+                    (32768, 1): 0.754}
 
 TH = 0.8                    # the headline pair's rotation about z
 SHIFT = (0.1, -0.05, 0.2)   # and its translation (bench.py:48-51)
@@ -102,45 +128,96 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_events(fn):
-    """(name, microseconds) of every kernel the card ran during ``fn``,
-    from torch.profiler; fails when the profiler saw none."""
+def _device_events(fn, attempts: int = 3, scope: str = ""):
+    """(name, microseconds, in_scope) of every kernel the card ran during
+    ``fn``, from torch.profiler; ``in_scope`` marks the kernels launched
+    inside a host range named ``scope`` (``record_function``), found
+    through the ops the profiler nests in that range. Now and then a
+    trace comes back without any device record: ``fn`` is then profiled
+    again, and it fails when ``attempts`` traces in a row recorded
+    none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for attempt in range(attempts):
         torch.cuda.synchronize()
-    evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not evs:
-        raise SystemExit("torch.profiler recorded no device time")
-    return evs
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        # a record_function range also leaves a device-side annotation
+        # spanning its kernels (and the gaps between them): not a kernel
+        evs = [(e.name, e.time_range.elapsed_us()) for e in events
+               if e.device_type == cuda
+               and not getattr(e, "is_user_annotation", False)
+               and not (scope and e.name == scope)]
+        if evs:
+            scoped = collections.Counter()
+
+            def collect(e):
+                scoped.update((k.name, k.duration) for k in e.kernels)
+                for child in e.cpu_children:
+                    collect(child)
+
+            for e in events:
+                if scope and e.name == scope and e.device_type == cpu:
+                    collect(e)
+            out = []
+            for name, t in evs:
+                inside = scoped[(name, t)] > 0
+                scoped[(name, t)] -= inside
+                out.append((name, t, inside))
+            return out
+        _log(f"  torch.profiler recorded no device time (trace "
+             f"{attempt + 1} of {attempts})")
+    raise SystemExit("torch.profiler recorded no device time")
 
 
-def _kernel_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device milliseconds of the kernel ``kernel`` per call of
-    ``fn`` (one launch per call), from the profiler: the kernel alone,
-    without the host time of its wrapper.
+def _kernel_ms(fn, kernels, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn`` of the kernel named
+    ``kernels`` (or the sum over a tuple of names, each launched once
+    per call), from the profiler: the kernels alone, without the host
+    time of their wrapper.
 
-    The profiler's CUDA trace now and then loses kernel records, so the
-    mean is over the launches it recorded; when it recorded none, the
-    calls are timed with CUDA events instead (wrapper included). It
-    fails when it recorded more than ``reps``."""
+    The profiler's CUDA trace now and then loses kernel records, so each
+    mean is over the launches it recorded; when it recorded none of a
+    kernel, the calls are timed with CUDA events instead (wrapper
+    included). It fails when it recorded more than ``reps``."""
+    names = (kernels,) if isinstance(kernels, str) else kernels
     fn()
     evs = _device_events(lambda: [fn() for _ in range(reps)])
-    times = [t for name, t in evs if kernel in name]
-    if len(times) > reps:
-        raise SystemExit(f"expected {reps} launches of {kernel}, the "
-                         f"profiler saw {len(times)}")
-    if len(times) < reps:
-        _log(f"  the profiler recorded {len(times)} of {reps} launches "
-             f"of {kernel}" + ("; timed with CUDA events" if not times
-                               else ""))
-    if not times:
-        return _cuda_ms(fn, reps, warmup=0)
-    return sum(times) / len(times) / 1e3
+    total = 0.0
+    for kernel in names:
+        times = [t for name, t, _ in evs if kernel in name]
+        if len(times) > reps:
+            raise SystemExit(f"expected {reps} launches of {kernel}, the "
+                             f"profiler saw {len(times)}")
+        if len(times) < reps:
+            _log(f"  the profiler recorded {len(times)} of {reps} launches"
+                 f" of {kernel}" + ("; timed with CUDA events"
+                                    if not times else ""))
+        if not times:
+            return _cuda_ms(fn, reps, warmup=0)
+        total += sum(times) / len(times) / 1e3
+    return total
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``, all its kernels summed,
+    from the profiler."""
+    fn()
+    evs = _device_events(lambda: [fn() for _ in range(reps)])
+    return sum(t for _, t, _ in evs) / reps / 1e3
+
+
+def _finite_err(got, want):
+    """(largest |got - want| over the entries where both are finite, the
+    number of entries that differ where either is not finite)."""
+    import torch
+    both = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want)[both].abs().max()) if bool(both.any()) else 0.0
+    return err, int(((got != want) & ~both).sum())
 
 
 def _bound(ops: float, nbytes: float):
@@ -315,16 +392,80 @@ def main() -> int:
     trng = np.random.default_rng(0)
     k1_err = 0.0
 
-    # 3. K1 against its plain version
-    k1_row = None
+    # candidates near the pair's pose (rotation part, in the centered
+    # frames), as the verify sees them once a step finds the overlap:
+    # the pruned kernel's work depends on where the queries land
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = _rot().T
+
+    def near_pose(c):
+        return torch.as_tensor(pose @ _random_transforms(trng, c, 0.05,
+                                                         0.02), device=dev)
+
+    def check_within(label, tr, qs, ps, eps, ref, brute):
+        """lcp_min_d2_within against its plain walk and the contract
+        where(ref <= eps^2, ref, inf) of the plain brute force ``ref``,
+        with the hit count of the brute-force kernel's ``brute``; its
+        times, pair tests and bounds. Returns its JSON fields, and its
+        largest error and non-finite mismatches (:func:`_finite_err`)
+        against the contract and the walk."""
+        eps2 = float(np.float32(eps) * np.float32(eps))
+        got = k1.lcp_min_d2_within(tr, qs, ps, eps)
+        walk = k1.lcp_min_d2_within_plain(tr, qs, ps, eps)
+        contract = torch.where(ref <= eps2, ref, float("inf"))
+        torch.cuda.synchronize()
+        same = torch.equal(got, contract) and torch.equal(got, walk)
+        errs = [_finite_err(got, want) for want in (contract, walk)]
+        err, bad = max(e for e, _ in errs), sum(b for _, b in errs)
+        hits_w = int(torch.isfinite(got).sum())
+        hits_b = int((brute <= eps2).sum())
+        del walk, contract
+        ms = _kernel_ms(lambda: k1.lcp_min_d2_within(tr, qs, ps, eps),
+                        K1W_NAME, reps=10)
+        build_ms = _device_ms(lambda: k1.grid_index(ps, eps), reps=10)
+        plain_ms = _cuda_ms(
+            lambda: k1.lcp_min_d2_within_plain(tr, qs, ps, eps), reps=1)
+        _, keys, grid = k1.grid_index(ps, eps)
+        tx, ty, tz = (t.reshape(-1) for t in k1._transformed(tr, qs))
+        _, counts = k1.walk_ranges(tx, ty, tz, keys, grid, eps)
+        tested = int(counts.sum())
+        c, nq, np_ = tr.shape[0], qs.shape[0], ps.shape[0]
+        # the pruned work: its pair tests, each input read once (P as
+        # float4 points and int32 keys), the output written once
+        bound_ms, bound_by = _bound(
+            K1_OPS * tested, 4 * (16 * c + 3 * nq + 5 * np_ + c * nq))
+        brute_ms, _ = _bound(K1_OPS * c * nq * np_,
+                             4 * (16 * c + 3 * nq + 3 * np_ + c * nq))
+        _log(f"K1 within {label}: C={c} nq={nq} np={np_} eps={eps} "
+             f"equal to plain walk and contract={same} max|dd2|="
+             f"{err:.3e} non-finite mismatches={bad} hits kernel="
+             f"{hits_w} brute-force kernel={hits_b} pair tests={tested} "
+             f"({tested / (c * nq):.1f} per query, brute force "
+             f"{c * nq * np_}) kernel {ms:.4f} ms index build "
+             f"{build_ms:.4f} ms plain {plain_ms:.3f} ms bound "
+             f"{bound_ms:.5f} ms ({bound_by}), brute-force bound "
+             f"{brute_ms:.3f} ms")
+        if not (same and hits_w == hits_b):
+            raise SystemExit(f"K1 within {label} disagrees with its "
+                             f"contract")
+        return dict(shape=f"C={c} nq={nq} np={np_} eps={eps}", ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None,
+                    index_build_ms=build_ms, pair_tests=tested,
+                    brute_force_bound_ms=brute_ms), err, bad
+
+    # 3. K1 at the verify's shapes: the pruned kernel against its
+    # contract, the brute force against its plain version
+    k1_row = k1w_row = None
+    k1w_err, k1w_bad = 0.0, 0
     for label, c, qs, ps in (
             ("exact", 64, q_pos, p_pos),
+            ("mid", 2048, q_pos[::16], p_pos[::10]),
             ("coarse-4096", 4096, q_pos[::128], p_pos[::37]),
             ("coarse-16384", 16384, q_pos[::128], p_pos[::37])):
         qs = qs.contiguous()
         ps = ps.contiguous()
-        tr = torch.as_tensor(_random_transforms(trng, c, 0.05, 0.02),
-                             device=dev)
+        tr = near_pose(c)
         got = k1.lcp_min_d2(tr, qs, ps)
         ref = k1.lcp_min_d2_plain(tr, qs, ps)
         torch.cuda.synchronize()
@@ -332,6 +473,11 @@ def main() -> int:
         k1_err = max(k1_err, err)
         hits_k = int((got <= eps2).sum())
         hits_p = int((ref <= eps2).sum())
+        row, w_err, w_bad = check_within(label, tr, qs, ps, opts.delta,
+                                         ref, got)
+        k1w_err, k1w_bad = max(k1w_err, w_err), k1w_bad + w_bad
+        if label == "exact":
+            k1w_row = row
         ms = _kernel_ms(lambda: k1.lcp_min_d2(tr, qs, ps), K1_NAME,
                         reps=10)
         plain_ms = _cuda_ms(lambda: k1.lcp_min_d2_plain(tr, qs, ps),
@@ -364,6 +510,8 @@ def main() -> int:
             k1_row = dict(shape=f"C={c} nq={qs.shape[0]} np={ps.shape[0]}",
                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
+            del tq, pb, lib
+        del got, ref
 
     # 3b. K1 at the 1M config's shapes (the TPU's streamed-P K3), and
     # min_sq_dists (K4a/K4b) against its plain version
@@ -381,8 +529,7 @@ def main() -> int:
          f"({time.perf_counter() - t0:.1f} s to build and sample)")
     if up.shape[0] != 530_895 or uqp.shape[0] != 16384:
         raise SystemExit("the 1M config's samples changed size")
-    tr = torch.as_tensor(_random_transforms(trng, 64, 0.05, 0.02),
-                         device=dev)
+    tr = near_pose(64)
     got = k1.lcp_min_d2(tr[:4], uqp, up)
     ref = k1.lcp_min_d2_plain(tr[:4], uqp, up)
     torch.cuda.synchronize()
@@ -404,6 +551,15 @@ def main() -> int:
                                         ref <= 0.005 ** 2)):
         raise SystemExit("K1 at the 1M config disagrees with its plain "
                          "version")
+    ref = k1.lcp_min_d2_plain(tr, uqp, up)
+    got = k1.lcp_min_d2(tr, uqp, up)
+    if not torch.equal(got, ref):
+        raise SystemExit("K1 at the 1M config's exact stage disagrees "
+                         "with its plain version")
+    k1w_1m, w_err, w_bad = check_within("1M exact", tr, uqp, up, 0.005,
+                                        ref, got)
+    k1w_err, k1w_bad = max(k1w_err, w_err), k1w_bad + w_bad
+    del ref, got
     got = k1.min_sq_dists(uqp, up)
     ref = k1.min_sq_dists_plain(uqp, up)
     torch.cuda.synchronize()
@@ -443,7 +599,7 @@ def main() -> int:
     k2_err = max(int((a.long() - b.long()).abs().max())
                  for a, b in zip(got, ref))
     hits = int(got[1].sum())
-    ms = _kernel_ms(lambda: k2.rowcap_capture(*cap_args), K2_NAME,
+    ms = _kernel_ms(lambda: k2.rowcap_capture(*cap_args), K2_NAMES,
                     reps=20)
     plain_ms = _cuda_ms(lambda: k2.rowcap_capture_plain(*cap_args), reps=3)
     _log(f"K2: n={q_pos.shape[0]} row_cap={row_cap} hits={hits} "
@@ -457,14 +613,19 @@ def main() -> int:
     got = k2.rowcap_capture(*cap_args, bounds=bounds)
     same = all(torch.equal(a, b) for a, b in zip(got, ref))
     ms_rej = _kernel_ms(lambda: k2.rowcap_capture(*cap_args, bounds=bounds),
-                        K2_NAME, reps=20)
+                        K2_NAMES, reps=20)
+    prep_ms = _kernel_ms(lambda: k2.rowcap_capture(*cap_args, bounds=bounds),
+                         K2_NAMES[1], reps=20)
     n_pad = k2._round_up(q_pos.shape[0], 2048)
     tested = (1.0 - rej) * n_pad * n_pad
     bound_ms, bound_by = _bound(
         K2_BAND_OPS * tested + K2_HASH_OPS * int((got[0] >= 0).sum()),
         12 * q_pos.shape[0] + 4 * n_pad * (2 * row_cap + 1))
     _log(f"K2 with rejection: {100 * rej:.1f}% of tile pairs rejected, "
-         f"bit-identical={same} kernel {ms_rej:.3f} ms (off {ms:.3f} ms) "
+         f"bit-identical={same} kernel {ms_rej:.4f} ms, of which prep "
+         f"{prep_ms:.4f} ms (off {ms:.4f} ms; one-thread-per-row "
+         f"kernel {K2_ROW_THREAD_MS['headline'][0]} / "
+         f"{K2_ROW_THREAD_MS['headline'][1]} ms) "
          f"bound {bound_ms:.4f} ms ({bound_by})")
     if not same:
         raise SystemExit("K2 with rejection disagrees with its plain "
@@ -529,12 +690,12 @@ def main() -> int:
                         .float().mean())
             ms_on = _kernel_ms(lambda: k2.rowcap_capture(
                 fq, row_cap=rcap, bounds=fbounds, **hash_kw, **kw),
-                K2_NAME, reps=10)
+                K2_NAMES, reps=10)
             ms_off = _kernel_ms(lambda: k2.rowcap_capture(
-                fq, row_cap=rcap, **hash_kw, **kw), K2_NAME, reps=10)
+                fq, row_cap=rcap, **hash_kw, **kw), K2_NAMES, reps=10)
             ms_unf = _kernel_ms(lambda: k2.rowcap_capture(
                 fq, row_cap=rcap, bounds=fbounds, **hash_kw, **kw0),
-                K2_NAME, reps=10)
+                K2_NAMES, reps=10)
             pl_ms = _cuda_ms(lambda: k2.rowcap_capture_plain(
                 fq, row_cap=rcap, **hash_kw, **kw), reps=2)
             in_band = int(unf[1].sum())
@@ -548,16 +709,19 @@ def main() -> int:
             _log(f"K2 filtered: n={fq.shape[0]} row_cap={rcap} edge {e} "
                  f"pairs in band={in_band} passing filters="
                  f"{int(on[1].sum())} bit-identical (on, off, plain)="
-                 f"{same} rejected={100 * rej:.1f}% kernel {ms_on:.3f} ms "
-                 f"(rejection off {ms_off:.3f} ms, unfiltered "
-                 f"{ms_unf:.3f} ms) plain {pl_ms:.3f} ms bound "
+                 f"{same} rejected={100 * rej:.1f}% kernel {ms_on:.4f} ms "
+                 f"(one-thread-per-row kernel "
+                 f"{K2_ROW_THREAD_MS[(fq.shape[0], e)]} ms; "
+                 f"rejection off {ms_off:.4f} ms, unfiltered "
+                 f"{ms_unf:.4f} ms) plain {pl_ms:.3f} ms bound "
                  f"{b_ms:.4f} ms ({b_by})")
             if not same or int(on[1].sum()) == 0:
                 raise SystemExit("filtered K2 disagrees with its plain "
                                  "version")
     del fq, fn_, fc, on, off, ref, unf
 
-    counters = {"lcp_min_d2": (k1.lcp_min_d2, "launches"),
+    counters = {"lcp_min_d2_within": (k1.lcp_min_d2_within, "launches"),
+                "lcp_min_d2": (k1.lcp_min_d2, "launches"),
                 "rowcap_capture": (k2.rowcap_capture, "launches"),
                 "rowcap_capture_filtered": (k2.rowcap_capture,
                                             "filtered_launches")}
@@ -588,7 +752,7 @@ def main() -> int:
             opts, device="cuda").compute_transformation(
                 s4.PointCloud(P), s4.PointCloud(Q)), counters)
     by_path["headline"] = counts
-    if min(counts["lcp_min_d2"], counts["rowcap_capture"]) <= 0:
+    if min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0:
         raise SystemExit("a kernel of the main path never launched")
     pairs_headline = report("headline", res, wall, peak)
 
@@ -601,7 +765,7 @@ def main() -> int:
         "filtered", lambda: s4.MatchSuper4PCS(
             fopts, device="cuda").compute_transformation(fP, fQ), counters)
     by_path["filtered"] = counts
-    if (min(counts["lcp_min_d2"], counts["rowcap_capture"]) <= 0
+    if (min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0
             or counts["rowcap_capture_filtered"] <= 0):
         raise SystemExit("a kernel of the filtered path never launched")
     pairs_filtered = report("filtered", res, wall, peak)
@@ -609,7 +773,8 @@ def main() -> int:
          f"unfiltered headline {pairs_headline:.0f} "
          f"({pairs_filtered / max(pairs_headline, 1):.3f}x)")
 
-    # 6. the 500-point known-pose recipe (dense engine, K1 only)
+    # 6. the 500-point known-pose recipe (dense engine, K1 only: its
+    # pruned verify)
     r2 = np.random.default_rng(11)
     v = r2.normal(size=(500, 3))
     v /= np.linalg.norm(v, axis=1, keepdims=True)
@@ -632,7 +797,7 @@ def main() -> int:
          f"search_s={r.stats.get('search_seconds', float('nan')):.3f}")
     if not (r.score > 0.95 and med < 0.05):
         raise SystemExit("500-point recipe missed its gates")
-    if counts["lcp_min_d2"] <= 0:
+    if counts["lcp_min_d2_within"] <= 0:
         raise SystemExit("K1 never launched on the recipe path")
 
     # 7. where a headline step's time goes: 4 steps under the profiler,
@@ -645,14 +810,23 @@ def main() -> int:
         m._run_step(i)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / 4
-    evs = _device_events(lambda: [m._run_step(i) for i in range(5, 9)])
-    busy = sum(t for _, t in evs) / 4 / 1e3
+    # the kernels of K1's index build (the wrapper's "grid_index" range)
+    # are counted with K1, not with the sorts and other torch ops
+    evs = _device_events(lambda: [m._run_step(i) for i in range(5, 9)],
+                         scope="grid_index")
+    busy = sum(t for _, t, _ in evs) / 4 / 1e3
     parts = {}
-    for name, t in evs:
-        key = (K1_NAME if K1_NAME in name else K2_NAME if K2_NAME in name
-               else "sort" if "sort" in name.lower() else "other")
+    for name, t, in_index in evs:
+        key = ("K1 grid_index" if in_index else
+               next((k for k in (K1W_NAME, K1_NAME) + K2_NAMES
+                     if k in name),
+                    "sort" if "sort" in name.lower() else "other"))
         ms_, n_ = parts.get(key, (0.0, 0))
         parts[key] = (ms_ + t / 4 / 1e3, n_ + 1)
+    if "K1 grid_index" not in parts:
+        raise SystemExit("the profile holds no kernel of K1's index build")
+    k1_step = {k: parts.get(k, (0.0, 0))[0]
+               for k in (K1W_NAME, "K1 grid_index")}
     _log(f"headline step profile (steps 5-8 of seed 1): wall "
          f"{1e3 * step_s:.1f} ms per unprofiled step, device busy "
          f"{busy:.1f} ms per step (idle share "
@@ -660,6 +834,9 @@ def main() -> int:
          f"{len(evs) / 4:.0f} kernels per step; per step: " + ", ".join(
              f"{k} {v[0]:.2f} ms in {v[1] / 4:.0f} launches"
              for k, v in sorted(parts.items(), key=lambda kv: -kv[1][0])))
+    _log(f"K1 verify per step: {sum(k1_step.values()):.3f} ms "
+         f"(kernel {k1_step[K1W_NAME]:.3f} ms + index build "
+         f"{k1_step['K1 grid_index']:.3f} ms)")
 
     def launches(name):
         return {path: c[name] for path, c in by_path.items()}
@@ -667,6 +844,19 @@ def main() -> int:
     lk = "super4pcs_tpu/kernels/lcp_pallas.py"
     rk = "super4pcs_tpu/kernels/rowcap_pallas.py"
     kernels = [
+        dict(name="lcp_min_d2_within", route="cuda",
+             source="super4pcs_tpu_torch/csrc/lcp.cu",
+             replaces=(f"{lk}:76 (K1 _lcp_min_kernel, as the verify "
+                       f"lcp_scores_pallas :157 calls it)"),
+             launches=sum(launches("lcp_min_d2_within").values()),
+             launches_by_path=launches("lcp_min_d2_within"),
+             max_abs_err=k1w_err, nonfinite_mismatches=k1w_bad,
+             **k1w_row,
+             step_ms=k1_step[K1W_NAME],
+             step_ms_with_index=sum(k1_step.values()),
+             one_million={k: k1w_1m[k] for k in (
+                 "shape", "ms", "bound_ms", "bound_by", "index_build_ms",
+                 "pair_tests", "brute_force_bound_ms")}),
         dict(name="lcp_min_d2", route="cuda",
              source="super4pcs_tpu_torch/csrc/lcp.cu",
              replaces=(f"{lk}:76 (K1 _lcp_min_kernel); {lk}:276 (K3 "

@@ -15,24 +15,37 @@
 // join's spatial hash of the pair's invariant point a + inv * (b - a)
 // (0x7fffffff when empty).
 //
-// Design. Grid (n_pad / 256 row tiles, n_pad / 512 column segments);
-// one thread owns one row. The segment's 512 columns are staged in
-// shared memory: (x, y, z, |c|^2) as float4, and with filters
-// (nx, ny, nz, |n|^2) as float4 and (pos . seg, column score) as float2
-// (512 x 40 B = 20 KB). Every thread reads the same column per step (a
-// broadcast). The thread walks the columns in order and writes its hits
-// straight into its own slots, which gives the (n_pad, row_cap)
-// slot-major layout directly (the TPU kernel needed an XLA transpose
-// for it). Segment counts are added into rc[row] with an integer
-// atomicAdd, so rc must be zeroed by the caller. The filters are
-// template parameters (one instantiation per combination); each is
-// evaluated only for a pair inside the band, as the band already
-// decides most pairs. Tile-pair rejection is block-uniform and comes
-// first: the block reads its row tile's and its segment's bounding
-// spheres, and when the two cannot meet the band annulus it writes its
-// empty slots and returns before staging anything. The test is the TPU
-// kernel's, with its conservative slack, so the output is the same
-// with rejection on or off.
+// Design. Lanes own columns and rows are broadcast. A prep kernel runs
+// first, once per call: it fills cols and h with their empty-slot
+// sentinels (coalesced, so the capture writes only its hits) and writes
+// the padded column planes, (x, y, z, |c|^2) as float4 and, with
+// filters, (nx, ny, nz, |n|^2) and (pos . seg, column score, row score,
+// 0). A block of 8 warps covers 64 rows (8 per warp) of one 256-row
+// tile and one 512-column segment, 2048 blocks at n = 8192. Tile-pair
+// rejection is block-uniform at the TPU's granularity (256-row tile x
+// 512-column segment): a block first reads its row tile's and its
+// segment's bounding spheres, and when the two cannot meet the band
+// annulus it exits, its slots left empty. Otherwise it stages the
+// segment's planes in shared memory with cp.async while it loads its
+// rows. Each warp holds its 8 rows in registers and walks the segment in
+// 32-column chunks: a lane reads its column once per chunk (one shared
+// load feeds 8 band tests) and tests it against the 8 rows, free of
+// branches so that the rows' chains interleave. Per row, __ballot_sync
+// over the band predicate (then the filters' pass bits) gives the hits
+// of the chunk, and __popc(mask & lanemask_lt) each hit's rank in column
+// order; added to the row's running count (a warp-uniform register), it
+// is the hit's slot, written while below seg_q. This gives the (n_pad,
+// row_cap) slot-major layout directly (the TPU kernel needed an XLA
+// transpose for it). The filters are template parameters (one
+// instantiation per combination) and run only on pairs inside the band:
+// a warp compacts its chunk's in-band (row, column) pairs into a list in
+// shared memory, so that each lane evaluates one pair of the list (a
+// 32-column chunk holds only a few in-band columns per row), and each
+// passing pair sets its bit in its row's mask, which then gives the
+// ranks. Each row's count in the segment is added into rc[row] with one
+// integer atomicAdd, so rc must be zeroed by the caller. The rejection
+// test is the TPU kernel's, with its conservative slack, so
+// the output is the same with rejection on or off.
 //
 // Bound. Per edge, n_pad^2 band tests of about 10 fp32 operations (dot,
 // d2, two compares) on the CUDA cores, minus the rejected tile pairs.
@@ -44,11 +57,10 @@
 // n_pad * row_cap * 4 bytes for cols (and again for h on edge 0), plus
 // n_pad * 4 for rc. At the headline's shapes (n = 8192) the operations
 // take ~7 us at the card's fp32 peak and the output ~3 us at its memory
-// rate, against ~0.09 ms measured (H100, chip_smoke.py phase 4): the
-// kernel is bound by neither but by latency, each thread walking its
-// 512 columns serially in a grid of only 512 blocks. Rejection skips on
-// average 19.5% of the tile pairs at nq = 8192 and 50.4% at nq = 32768
-// (64 bases x 2 edges of the headline's kd-ordered Q, phase 4a).
+// rate. A band test issues about 15 warp instructions per 32 pairs
+// (8 fp32, the compares, the ballot and its branch), so the issue rate
+// (132 SMs x 4 warp instructions a cycle) bounds the launch at ~30 us
+// with nothing rejected.
 //
 // Numerics. d2 = (r2 + c2) - 2 * dot with dot = (ax bx + ay by) + az bz,
 // the squares summed in the same order; the invariant point is
@@ -71,10 +83,16 @@
 
 namespace {
 
-constexpr int ROW_TILE = 256;
-constexpr int COL_TILE = 512;
+constexpr int ROW_TILE = 256;   // rows of a rejection tile
+constexpr int COL_TILE = 512;   // columns of a segment
+constexpr int THREADS = 256;    // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int R = 8;            // rows per warp
+constexpr int BLOCK_ROWS = WARPS * R;
+constexpr int CHUNKS = COL_TILE / 32;
 constexpr int SENT = 0x7fffffff;
 constexpr float PAD = 1.0e18f;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
@@ -91,6 +109,18 @@ __device__ __forceinline__ uint32_t cell_of(float a, float b, float inv,
                                             float cell) {
   const float e = __fadd_rn(a, __fmul_rn(inv, __fsub_rn(b, a)));
   return (uint32_t)(int)floorf(__fdiv_rn(e, cell));
+}
+
+// d2 of a row point a and a column point b, (|a|^2 + |b|^2) - 2 a.b
+__device__ __forceinline__ float pair_d2(const float4& a, const float4& b) {
+  return __fsub_rn(__fadd_rn(a.w, b.w),
+                   __fmul_rn(2.f, dot3(a.x, a.y, a.z, b.x, b.y, b.z)));
+}
+
+__device__ __forceinline__ bool in_band(const float4& a, const float4& b,
+                                        float lo2, float hi2) {
+  const float d2 = pair_d2(a, b);
+  return d2 >= lo2 && d2 <= hi2;
 }
 
 // Whether the row tile (sphere rb) and the column segment (sphere cb)
@@ -112,135 +142,243 @@ __device__ __forceinline__ bool tile_rejected(const float* rb,
          __fadd_rn(dc, rsum) < __fsub_rn(lo, slack);
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
 // Launch arguments (null pointers for what is off).
 struct Args {
   const float* q;        // (n, 3)
-  int n, seg_q, row_cap, emit_hash, use_reject;
+  int n, n_pad, seg_q, row_cap, emit_hash, use_angle, use_reject;
   const float* geo;      // [lo2, hi2, inv, cell, nang, nthr, cmax]
   const float* normals;  // (n, 3)
   const float* aux;      // (2, n): pos . seg, |n|^2
   const float* rcscore;  // (2, n): row score, column score
   const float* rowb;     // (n_pad / 256, 4) bounding spheres
   const float* colb;     // (n_pad / 512, 4)
+  float4* pts;           // (n_pad,) x, y, z, |c|^2 (prep output)
+  float4* nrm;           // (n_pad,) nx, ny, nz, |n|^2, with normals
+  float4* ext;           // (n_pad,) pos . seg, column score, row score, 0
   int* cols;             // (n_pad, row_cap)
   int* rc;               // (n_pad,), zeroed
   int* h;                // (n_pad, row_cap) with emit_hash
 };
 
+// Once per call: the empty tables (-1 in cols, SENT in h, written
+// coalesced as int4, so the capture kernel writes only its hits) and the
+// padded planes: a padded point (j >= n) sits at (1e18, 0, 0) with zero
+// filter planes, as in the plain version.
+__global__ void __launch_bounds__(256) rowcap_prep_kernel(const Args a) {
+  const long long slots4 = (long long)a.n_pad * a.row_cap / 4;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < slots4;
+       i += (long long)gridDim.x * 256) {
+    reinterpret_cast<int4*>(a.cols)[i] = make_int4(-1, -1, -1, -1);
+    if (a.emit_hash)
+      reinterpret_cast<int4*>(a.h)[i] = make_int4(SENT, SENT, SENT, SENT);
+  }
+  const int j = blockIdx.x * 256 + threadIdx.x;
+  if (j >= a.n_pad) return;
+  const bool real = j < a.n;
+  float x = PAD, y = 0.f, z = 0.f;
+  if (real) {
+    x = a.q[3LL * j];
+    y = a.q[3LL * j + 1];
+    z = a.q[3LL * j + 2];
+  }
+  a.pts[j] = make_float4(x, y, z, sq3(x, y, z));
+  if (a.nrm) {
+    a.nrm[j] = real ? make_float4(a.normals[3LL * j],
+                                  a.normals[3LL * j + 1],
+                                  a.normals[3LL * j + 2], a.aux[a.n + j])
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (a.ext) {
+    const bool ang = real && a.use_angle;
+    const bool sc = real && a.rcscore;
+    a.ext[j] = make_float4(ang ? a.aux[j] : 0.f,
+                           sc ? a.rcscore[a.n + j] : 0.f,
+                           sc ? a.rcscore[j] : 0.f, 0.f);
+  }
+}
+
 template <bool kNormals, bool kRowcol, bool kAngle>
-__global__ void __launch_bounds__(ROW_TILE)
+__global__ void __launch_bounds__(THREADS)
 rowcap_capture_kernel(const Args a) {
-  const float* __restrict__ q = a.q;
-  const int n = a.n, seg_q = a.seg_q;
-  constexpr bool kAux = kRowcol || kAngle;
+  constexpr bool kExt = kRowcol || kAngle;
+  constexpr bool kFilters = kNormals || kExt;
   __shared__ float4 seg_pts[COL_TILE];
   __shared__ float4 seg_nrm[kNormals ? COL_TILE : 1];
-  __shared__ float2 seg_aux[kAux ? COL_TILE : 1];
-  const int seg = blockIdx.y;
-  const int c0 = seg * COL_TILE;
-  const int row = blockIdx.x * ROW_TILE + threadIdx.x;
-  int* crow = a.cols + (long long)row * a.row_cap + seg * seg_q;
-  int* hrow = a.h + (long long)row * a.row_cap + seg * seg_q;
+  __shared__ float2 seg_ext[kExt ? COL_TILE : 1];  // pos . seg, score
+  __shared__ float4 row_nrm[kNormals ? BLOCK_ROWS : 1];
+  __shared__ float4 row_ext[kExt ? BLOCK_ROWS : 1];
+  __shared__ float4 row_pts[kAngle ? BLOCK_ROWS : 1];
+  __shared__ unsigned short pairs_s[kFilters ? WARPS : 1][R * 32];
+  __shared__ unsigned pass_s[kFilters ? WARPS : 1][R];
+
+  const int n = a.n, seg_q = a.seg_q;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lanemask_lt = (1u << lane) - 1u;
+  const int block_row0 = blockIdx.x * BLOCK_ROWS;
+  const int row0 = block_row0 + warp * R;
+  const int s = blockIdx.y;
+  const int live_rows = n - row0;  // rows r < live_rows are real
   const float lo2 = a.geo[0], hi2 = a.geo[1];
-
-  int found = 0;
-  // block-uniform: every thread of the block takes the same branch
-  if (!(a.use_reject && tile_rejected(a.rowb + 4 * blockIdx.x,
-                                      a.colb + 4 * blockIdx.y, lo2,
-                                      hi2))) {
-    for (int k = threadIdx.x; k < COL_TILE; k += ROW_TILE) {
-      const int j = c0 + k;
-      const bool real = j < n;
-      float x = PAD, y = 0.f, z = 0.f;
-      if (real) {
-        x = q[3LL * j];
-        y = q[3LL * j + 1];
-        z = q[3LL * j + 2];
-      }
-      seg_pts[k] = make_float4(x, y, z, sq3(x, y, z));
-      if (kNormals) {
-        seg_nrm[k] = real ? make_float4(a.normals[3LL * j],
-                                        a.normals[3LL * j + 1],
-                                        a.normals[3LL * j + 2],
-                                        a.aux[n + j])
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      if (kAux) {
-        seg_aux[k] = make_float2(kAngle && real ? a.aux[j] : 0.f,
-                                 kRowcol && real ? a.rcscore[n + j] : 0.f);
-      }
-    }
-    __syncthreads();
-
-    if (row < n) {
-      const float inv = a.geo[2], cell = a.geo[3];
-      const float nang = kNormals ? a.geo[4] : 0.f;
-      const float nthr = kNormals ? a.geo[5] : 0.f;
-      const float cmax = kAngle ? a.geo[6] : 0.f;
-      const float ax = q[3LL * row], ay = q[3LL * row + 1],
-                  az = q[3LL * row + 2];
-      const float r2 = sq3(ax, ay, az);
-      float nx = 0.f, ny = 0.f, nz = 0.f, n2 = 0.f, rs = 0.f, aseg = 0.f;
-      if (kNormals) {
-        nx = a.normals[3LL * row];
-        ny = a.normals[3LL * row + 1];
-        nz = a.normals[3LL * row + 2];
-        n2 = a.aux[n + row];
-      }
-      if (kRowcol) rs = a.rcscore[row];
-      if (kAngle) aseg = a.aux[row];
-      for (int k = 0; k < COL_TILE; ++k) {
-        const float4 b = seg_pts[k];
-        const float d2 = __fsub_rn(__fadd_rn(r2, b.w),
-                                   __fmul_rn(2.f, dot3(ax, ay, az, b.x,
-                                                       b.y, b.z)));
-        const int j = c0 + k;
-        if (!(d2 >= lo2 && d2 <= hi2 && j != row && j < n)) continue;
-        if (kNormals) {
-          const float4 m = seg_nrm[k];
-          if (n2 > 0.f && m.w > 0.f) {
-            const float ssum = __fadd_rn(n2, m.w);
-            const float two = __fmul_rn(2.f, dot3(nx, ny, nz, m.x, m.y,
-                                                  m.z));
-            const float dminus = __fsqrt_rn(fmaxf(__fsub_rn(ssum, two),
-                                                  0.f));
-            const float dplus = __fsqrt_rn(fmaxf(__fadd_rn(ssum, two),
-                                                 0.f));
-            const float nd = fminf(fabsf(__fsub_rn(dminus, nang)),
-                                   fabsf(__fsub_rn(dplus, nang)));
-            if (!(nd <= nthr)) continue;
-          }
-        }
-        if (kRowcol && !(__fadd_rn(rs, seg_aux[k].y) >= 2.f)) continue;
-        if (kAngle &&
-            !(__fsub_rn(seg_aux[k].x, aseg) >=
-              __fmul_rn(cmax, __fsqrt_rn(fmaxf(d2, 0.f)))))
-          continue;
-        if (found < seg_q) {
-          crow[found] = j;
-          if (a.emit_hash) {
-            const uint32_t hv =
-                (cell_of(ax, b.x, inv, cell) * 73856093u) ^
-                (cell_of(ay, b.y, inv, cell) * 19349669u) ^
-                (cell_of(az, b.z, inv, cell) * 83492791u);
-            hrow[found] = (int)hv;
-          }
-        }
-        ++found;
-      }
-      if (found) atomicAdd(a.rc + row, found);
+  // a rejected tile pair is neither staged nor tested: its slots stay
+  // empty and it adds nothing to rc (block-uniform)
+  if (a.use_reject && tile_rejected(a.rowb + 4 * (block_row0 / ROW_TILE),
+                                    a.colb + 4 * s, lo2, hi2))
+    return;
+  const int c0 = s * COL_TILE;
+  for (int k = threadIdx.x; k < COL_TILE; k += THREADS) {
+    cp_async16(&seg_pts[k], a.pts + c0 + k);
+    if (kNormals) cp_async16(&seg_nrm[k], a.nrm + c0 + k);
+    if (kExt) cp_async8(&seg_ext[k], a.ext + c0 + k);
+  }
+  cp_async_commit();
+  if (kFilters) {
+    for (int k = threadIdx.x; k < BLOCK_ROWS; k += THREADS) {
+      if (kNormals) row_nrm[k] = a.nrm[block_row0 + k];
+      if (kExt) row_ext[k] = a.ext[block_row0 + k];
+      if (kAngle) row_pts[k] = a.pts[block_row0 + k];
     }
   }
-  for (int k = found; k < seg_q; ++k) {
-    crow[k] = -1;
-    if (a.emit_hash) hrow[k] = SENT;
+  float4 rows[R];
+  int cnt[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    rows[r] = a.pts[row0 + r];
+    cnt[r] = 0;
+  }
+  const float inv = a.geo[2], cell = a.geo[3];
+  const float nang = kNormals ? a.geo[4] : 0.f;
+  const float nthr = kNormals ? a.geo[5] : 0.f;
+  const float cmax = kAngle ? a.geo[6] : 0.f;
+  const long long slot0 = (long long)s * seg_q;
+  cp_async_wait_all();
+  __syncthreads();
+  for (int ch = 0; ch < CHUNKS; ++ch) {
+    const int k = ch * 32 + lane;
+    const int j = c0 + k;
+    const float4 b = seg_pts[k];
+    const bool col_real = j < n;
+    // the band test of the 8 rows, free of branches so that the
+    // rows' chains interleave; the hits are handled after
+    unsigned band[R];
+    unsigned any = 0u;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      band[r] = __ballot_sync(FULL, in_band(rows[r], b, lo2, hi2) &&
+                                        col_real && j != row0 + r &&
+                                        r < live_rows);
+      any |= band[r];
+    }
+    if (!any) continue;  // warp-uniform
+    unsigned hit[R];
+    if (kFilters) {
+      // the filters of the chunk's in-band pairs, compacted into a
+      // list of (row, lane) entries so that every lane evaluates
+      // one; each passing pair sets its bit in pass[row]
+      unsigned short* list = pairs_s[warp];
+      unsigned* pass = pass_s[warp];
+      int total = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if ((band[r] >> lane) & 1u)
+          list[total + __popc(band[r] & lanemask_lt)] =
+              (unsigned short)((r << 5) | lane);
+        total += __popc(band[r]);
+      }
+      if (lane < R) pass[lane] = 0u;
+      __syncwarp();
+      for (int e = lane; e - lane < total; e += 32) {
+        if (e >= total) continue;
+        const int v = list[e];
+        const int r = v >> 5, l = v & 31;
+        const int wr = warp * R + r, kk = ch * 32 + l;
+        bool ok = true;
+        if (kNormals) {
+          const float4 rn = row_nrm[wr];
+          const float4 m = seg_nrm[kk];
+          if (rn.w > 0.f && m.w > 0.f) {
+            const float ssum = __fadd_rn(rn.w, m.w);
+            const float two = __fmul_rn(
+                2.f, dot3(rn.x, rn.y, rn.z, m.x, m.y, m.z));
+            const float dminus =
+                __fsqrt_rn(fmaxf(__fsub_rn(ssum, two), 0.f));
+            const float dplus =
+                __fsqrt_rn(fmaxf(__fadd_rn(ssum, two), 0.f));
+            const float nd = fminf(fabsf(__fsub_rn(dminus, nang)),
+                                   fabsf(__fsub_rn(dplus, nang)));
+            ok = nd <= nthr;
+          }
+        }
+        if (kRowcol && ok)
+          ok = __fadd_rn(row_ext[wr].z, seg_ext[kk].y) >= 2.f;
+        if (kAngle && ok) {
+          const float d2 = pair_d2(row_pts[wr], seg_pts[kk]);
+          ok = __fsub_rn(seg_ext[kk].x, row_ext[wr].x) >=
+               __fmul_rn(cmax, __fsqrt_rn(fmaxf(d2, 0.f)));
+        }
+        if (ok) atomicOr(&pass[r], 1u << l);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < R; ++r) hit[r] = pass[r];
+      __syncwarp();  // the next chunk rewrites the list and bits
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) hit[r] = band[r];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const unsigned mask = hit[r];
+      if (!mask) continue;  // warp-uniform
+      if ((mask >> lane) & 1u) {
+        const int slot = cnt[r] + __popc(mask & lanemask_lt);
+        if (slot < seg_q) {
+          const long long at =
+              (long long)(row0 + r) * a.row_cap + slot0 + slot;
+          a.cols[at] = j;
+          if (a.emit_hash) {
+            const float4 ra = rows[r];
+            const uint32_t hv =
+                (cell_of(ra.x, b.x, inv, cell) * 73856093u) ^
+                (cell_of(ra.y, b.y, inv, cell) * 19349669u) ^
+                (cell_of(ra.z, b.z, inv, cell) * 83492791u);
+            a.h[at] = (int)hv;
+          }
+        }
+      }
+      cnt[r] += __popc(mask);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (cnt[r]) atomicAdd(a.rc + row0 + r, cnt[r]);
   }
 }
 
 template <bool kNormals, bool kRowcol, bool kAngle>
 void launch(dim3 grid, cudaStream_t stream, const Args& a) {
   rowcap_capture_kernel<kNormals, kRowcol, kAngle>
-      <<<grid, ROW_TILE, 0, stream>>>(a);
+      <<<grid, THREADS, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -252,35 +390,48 @@ void launch(dim3 grid, cudaStream_t stream, const Args& a) {
 // use_normals; aux (2, n) f32, row 0 pos . seg (use_angle), row 1 |n|^2
 // (use_normals); rcscore (2, n) f32 for use_rowcol. rowb (n_pad / 256,
 // 4) and colb (n_pad / 512, 4) f32 bounding spheres [cx, cy, cz, r] for
-// use_reject. n_pad is a multiple of 2048 and row_cap = (n_pad / 512) *
-// seg_q. Returns cudaGetLastError.
+// use_reject. work: 16-byte aligned scratch of n_pad float4 planes, one
+// for the points, one more with use_normals and one more with
+// use_rowcol or use_angle (kernels/rowcap.py::rowcap_capture). n_pad is a
+// multiple of 2048 and row_cap = (n_pad / 512) * seg_q. Returns
+// cudaGetLastError.
 extern "C" int rowcap_capture(const void* q, int n, int n_pad,
                               const void* geo, int seg_q, int row_cap,
                               int emit_hash, const void* normals,
                               const void* aux, const void* rcscore,
                               int use_normals, int use_rowcol,
                               int use_angle, const void* rowb,
-                              const void* colb, int use_reject, void* cols,
-                              void* rc, void* h, void* stream) {
+                              const void* colb, int use_reject, void* work,
+                              void* cols, void* rc, void* h,
+                              void* stream) {
   if (n_pad == 0) return 0;
-  const dim3 grid(n_pad / ROW_TILE, n_pad / COL_TILE);
+  const int row_blocks = n_pad / BLOCK_ROWS;
+  const int segs = n_pad / COL_TILE;
+  const bool ext = use_rowcol || use_angle;
   Args a;
   a.q = (const float*)q;
   a.n = n;
+  a.n_pad = n_pad;
   a.seg_q = seg_q;
   a.row_cap = row_cap;
   a.emit_hash = emit_hash;
+  a.use_angle = use_angle;
   a.use_reject = use_reject;
   a.geo = (const float*)geo;
   a.normals = (const float*)normals;
   a.aux = (const float*)aux;
-  a.rcscore = (const float*)rcscore;
+  a.rcscore = use_rowcol ? (const float*)rcscore : nullptr;
   a.rowb = (const float*)rowb;
   a.colb = (const float*)colb;
+  a.pts = (float4*)work;
+  a.nrm = use_normals ? a.pts + n_pad : nullptr;
+  a.ext = ext ? a.pts + n_pad * (use_normals ? 2 : 1) : nullptr;
   a.cols = (int*)cols;
   a.rc = (int*)rc;
   a.h = (int*)h;
   const cudaStream_t st = (cudaStream_t)stream;
+  rowcap_prep_kernel<<<n_pad / 256, 256, 0, st>>>(a);  // before capture
+  const dim3 grid(row_blocks, segs);
   switch ((use_normals ? 1 : 0) | (use_rowcol ? 2 : 0) |
           (use_angle ? 4 : 0)) {
     case 0: launch<false, false, false>(grid, st, a); break;

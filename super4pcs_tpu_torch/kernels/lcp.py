@@ -2,15 +2,18 @@
 
 ``lcp_min_d2(transforms, q, p)[c, i] = min_j |R_c q_i + t_c - p_j|^2``:
 the verify core of the matcher (the reference's ``Verify`` kd-tree walk,
-ref:src/super4pcs/algorithms/match4pcsBase.cc:504-567). The CUDA kernel
-(``csrc/lcp.cu``) replaces the TPU kernel
-``super4pcs_tpu/kernels/lcp_pallas.py::_lcp_min_kernel``; its note says
-what bounds it and how it is laid out.
+ref:src/super4pcs/algorithms/match4pcsBase.cc:504-567). Two CUDA kernels
+(``csrc/lcp.cu``) replace the TPU kernel
+``super4pcs_tpu/kernels/lcp_pallas.py::_lcp_min_kernel``; their notes
+say what bounds them and how they are laid out.
 
-The same kernel covers the TPU's streamed-P variant
-``_lcp_min_stream_kernel`` (K3) and the untransformed
-``_min_dist_kernel`` / ``_min_dist_stream_kernel`` (K4a / K4b) through
-:func:`min_sq_dists`.
+- :func:`lcp_min_d2_within` is the verify of the main path: the same
+  min, kept only where it is ``<= eps^2`` (``+inf`` elsewhere), found by
+  walking a cell index of P (:func:`grid_index`) instead of all of P.
+- :func:`lcp_min_d2` is the brute force over all of P. It covers the
+  TPU's streamed-P variant ``_lcp_min_stream_kernel`` (K3) and the
+  untransformed ``_min_dist_kernel`` / ``_min_dist_stream_kernel`` (K4a
+  / K4b) through :func:`min_sq_dists`.
 
 The wrappers send a CPU tensor to the plain version and launch the
 kernel for a CUDA tensor (or raise): there is no fallback between the
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -83,25 +87,32 @@ def lcp_min_d2_plain(transforms: torch.Tensor, q: torch.Tensor,
     return _min_d2_rows(tx, ty, tz, p).view(c, nq)
 
 
+def _check(what: str, transforms, q, p) -> torch.device:
+    """The inputs' common device; raises on a wrong type, shape or a
+    device that is neither the CPU nor CUDA."""
+    dev = q.device
+    for name, t, shape in (("transforms", transforms, (4, 4)),
+                           ("q", q, (3,)), ("p", p, (3,))):
+        if t.dtype != torch.float32 or tuple(t.shape[1:]) != shape:
+            raise ValueError(f"{what}: {name} must be float32 "
+                             f"(N, {', '.join(map(str, shape))}), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{what}: inputs on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return dev
+
+
 def lcp_min_d2(transforms: torch.Tensor, q: torch.Tensor,
                p: torch.Tensor) -> torch.Tensor:
     """(C, nq) f32 min squared distances of every transformed query to
     P. ``transforms`` (C, 4, 4), ``q`` (nq, 3), ``p`` (np, 3), all
     float32 on one device. CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
-    dev = q.device
-    for name, t, shape in (("transforms", transforms, (4, 4)),
-                           ("q", q, (3,)), ("p", p, (3,))):
-        if t.dtype != torch.float32 or tuple(t.shape[1:]) != shape:
-            raise ValueError(f"lcp_min_d2: {name} must be float32 "
-                             f"(N, {', '.join(map(str, shape))}), got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev:
-            raise ValueError("lcp_min_d2: inputs on different devices")
+    dev = _check("lcp_min_d2", transforms, q, p)
     if dev.type == "cpu":
         return lcp_min_d2_plain(transforms, q, p)
-    if dev.type != "cuda":
-        raise ValueError(f"lcp_min_d2: unsupported device {dev}")
     transforms, q, p = (t.contiguous() for t in (transforms, q, p))
     c, nq, np_ = transforms.shape[0], q.shape[0], p.shape[0]
     out = torch.empty((c, nq), dtype=torch.float32, device=dev)
@@ -130,7 +141,188 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.lcp_min_d2_within
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+#: cells per axis of the index are at most 1001 (side >= extent / 1000),
+#: so a cell key (ix * ny + iy) * nz + iz fits an int32
+_AXIS_CELLS = 1000
+#: relative widening of the query box (see :func:`_query_box`)
+_WIDEN = 2.0 ** -20
+
+
+def grid_index(p: torch.Tensor, eps):
+    """Cell index of the (np, 3) cloud ``p`` for a search radius ``eps``:
+    ``(pts (np, 4) f32, keys (np,) int32, grid (7,) f32)``.
+
+    A uniform grid of side ``L = max(float32(eps), extent / 1000)`` over
+    P's bounding box ``lo``; a point's cell per axis is
+    ``floor((x - lo) / L)`` in float32 with IEEE division (``L`` is a
+    tensor, never a host scalar), its key ``(ix * ny + iy) * nz + iz``.
+    ``pts`` holds P sorted by key as ``(x, y, z, 0)``, ``keys`` the
+    sorted keys, ``grid`` ``[lo_x, lo_y, lo_z, L, nx, ny, nz]``. Plain
+    tensor work on P's device (no host sync); ``p`` is non-empty and
+    finite.
+    """
+    lo, hi = torch.aminmax(p, dim=0)
+    ext = hi - lo
+    side = (ext.amax() / _AXIS_CELLS).clamp(
+        min=max(float(np.float32(eps)), float(np.finfo(np.float32).tiny)))
+    dims = torch.floor(ext / side) + 1
+    cell = torch.floor((p - lo) / side).to(torch.int32)
+    n = dims.to(torch.int32)
+    keys = (cell[:, 0] * n[1] + cell[:, 1]) * n[2] + cell[:, 2]
+    keys, perm = torch.sort(keys)
+    pts = torch.nn.functional.pad(p[perm], (0, 1))
+    return pts, keys, torch.cat([lo, side.reshape(1), dims])
+
+
+def _query_box(tx, ty, tz, grid, eps: float):
+    """Per query: the inclusive cell range ``(lo (M, 3), hi (M, 3))``
+    int64 that holds every P point within ``eps`` of ``(tx, ty, tz)``,
+    and ``empty`` (M,) bool where there is none (a non-finite query,
+    or a box outside the grid).
+
+    Per axis the box runs from ``cell(t - e)`` to ``cell(t + e)`` with
+    ``e = eps (1 + 2^-20) + 2^-20 max(|t|_inf, eps)``, which covers the
+    rounding of ``t -/+ e`` and of the d^2 sum, so a point whose float32
+    d^2 is ``<= float32(eps)^2`` lies inside it. ``cell`` is the
+    expression :func:`grid_index` assigned P with, so it is monotone
+    and the box conservative. The kernel computes the box the same
+    way, in float32."""
+    t = torch.stack([tx, ty, tz], dim=1)
+    e32 = float(np.float32(eps))
+    tmax = t.abs().amax(dim=1, keepdim=True).clamp(min=e32)
+    e = e32 * (1.0 + _WIDEN) + _WIDEN * tmax
+    lo, side, n = grid[0:3], grid[3], grid[4:7]
+    flo = torch.floor(((t - e) - lo) / side)
+    fhi = torch.floor(((t + e) - lo) / side)
+    empty = ~torch.isfinite(t).all(dim=1) | (
+        (fhi < 0) | (flo > n - 1)).any(dim=1)
+    flo = torch.where(empty[:, None], 0.0, flo)
+    fhi = torch.where(empty[:, None], 0.0, fhi)
+    return (torch.maximum(flo, torch.zeros_like(flo)).long(),
+            torch.minimum(fhi, n - 1).long(), empty)
+
+
+def walk_ranges(tx, ty, tz, keys, grid, eps):
+    """The ranges of the sorted index that the kernel walks for the
+    (M,) queries ``(tx, ty, tz)``: ``(starts (M, K), counts (M, K))``
+    int64, one key range per (x, y) column of each query's box (z is
+    the fastest axis of a key), ``count`` 0 for a column outside the
+    box. ``counts.sum()`` is the number of pair tests."""
+    blo, bhi, empty = _query_box(tx, ty, tz, grid, eps)
+    ny, nz = int(grid[5]), int(grid[6])
+    span = (bhi - blo + 1).masked_fill(empty[:, None], 0)
+    sx, sy = int(span[:, 0].max()), int(span[:, 1].max())
+    starts, counts = [], []
+    for dx in range(sx):
+        for dy in range(sy):
+            ix, iy = blo[:, 0] + dx, blo[:, 1] + dy
+            live = (ix <= bhi[:, 0]) & (iy <= bhi[:, 1]) & ~empty
+            base = (ix * ny + iy) * nz
+            s0 = torch.searchsorted(keys, (base + blo[:, 2]).to(torch.int32))
+            s1 = torch.searchsorted(keys, (base + bhi[:, 2]).to(torch.int32),
+                                    right=True)
+            starts.append(s0)
+            counts.append(torch.where(live, s1 - s0, 0))
+    if not starts:
+        zero = torch.zeros((tx.shape[0], 0), dtype=torch.int64,
+                           device=tx.device)
+        return zero, zero
+    return torch.stack(starts, 1), torch.stack(counts, 1)
+
+
+def lcp_min_d2_within_plain(transforms: torch.Tensor, q: torch.Tensor,
+                            p: torch.Tensor, eps) -> torch.Tensor:
+    """Plain PyTorch version of :func:`lcp_min_d2_within`: the same
+    index and query box, walked with ``searchsorted`` over the key
+    columns (:func:`walk_ranges`) and a ragged gather, blocked over the
+    flattened (C * nq) rows. d^2 in the kernel's order, so the result
+    is ``where(lcp_min_d2_plain <= eps2, lcp_min_d2_plain, inf)`` bit
+    for bit."""
+    c, nq = transforms.shape[0], q.shape[0]
+    dev = q.device
+    out = torch.full((c * nq,), float("inf"), dtype=torch.float32,
+                     device=dev)
+    if c * nq == 0 or p.shape[0] == 0:
+        return out.view(c, nq)
+    pts, keys, grid = grid_index(p, eps)
+    tx, ty, tz = (t.reshape(-1) for t in _transformed(transforms, q))
+    starts, counts = walk_ranges(tx, ty, tz, keys, grid, eps)
+    k = starts.shape[1]
+    if k == 0:
+        return out.view(c, nq)
+    rb = max(1, _elem_budget(dev) // max(1, int(counts.sum(dim=1).max())))
+    eps2 = float(np.float32(eps) * np.float32(eps))
+    for r0 in range(0, c * nq, rb):
+        r1 = min(r0 + rb, c * nq)
+        cnt = counts[r0:r1].reshape(-1)
+        tot = int(cnt.sum())
+        if tot == 0:
+            continue
+        seg = torch.repeat_interleave(
+            torch.arange(cnt.shape[0], device=dev), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        j = (starts[r0:r1].reshape(-1)[seg]
+             + torch.arange(tot, device=dev) - first[seg])
+        row = r0 + seg // k
+        v = pts[j]
+        d = tx[row] - v[:, 0]
+        d.mul_(d)
+        e = ty[row] - v[:, 1]
+        d.add_(e.mul_(e))
+        e = tz[row] - v[:, 2]
+        d.add_(e.mul_(e))
+        out.scatter_reduce_(0, row, d, "amin")
+    return torch.where(out <= eps2, out, float("inf")).view(c, nq)
+
+
+def lcp_min_d2_within(transforms: torch.Tensor, q: torch.Tensor,
+                      p: torch.Tensor, eps) -> torch.Tensor:
+    """(C, nq) f32: the min squared distance of every transformed query
+    to P where it is ``<= float32(eps)^2``, ``+inf`` elsewhere (and for
+    a non-finite transformed query). Bit for bit
+    ``where(lcp_min_d2(...) <= eps2, lcp_min_d2(...), inf)``: a point
+    beyond ``eps`` never changes a min below ``eps``, so the kernel
+    tests only the points of the cells around each query. Arguments as
+    :func:`lcp_min_d2`, plus the search radius ``eps`` (a number). The
+    index is built on every call (P may be a strided view, and its
+    memory may be reused between calls). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    dev = _check("lcp_min_d2_within", transforms, q, p)
+    if dev.type == "cpu":
+        return lcp_min_d2_within_plain(transforms, q, p, eps)
+    transforms, q = transforms.contiguous(), q.contiguous()
+    c, nq, np_ = transforms.shape[0], q.shape[0], p.shape[0]
+    out = torch.empty((c, nq), dtype=torch.float32, device=dev)
+    if c * nq == 0:
+        return out
+    if np_ == 0:
+        return out.fill_(float("inf"))
+    # a named range, so that a profile can count the index's kernels
+    # with the verify's
+    with torch.profiler.record_function("grid_index"):
+        pts, keys, grid = grid_index(p, eps)
+    e32 = np.float32(eps)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.lcp_min_d2_within(
+            transforms.data_ptr(), q.data_ptr(), pts.data_ptr(),
+            keys.data_ptr(), grid.data_ptr(), out.data_ptr(), c, nq, np_,
+            float(e32), float(e32 * e32), stream), "lcp_min_d2_within")
+    lcp_min_d2_within.launches += 1
+    return out
+
+
+#: kernel launches since the count was last reset (CUDA path only)
+lcp_min_d2_within.launches = 0
 
 
 def min_sq_dists_plain(tq: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

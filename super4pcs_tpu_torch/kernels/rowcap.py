@@ -35,7 +35,7 @@ import torch
 
 from . import _build
 
-ROW_TILE = 256      # rows per block (one thread per row)
+ROW_TILE = 256      # rows of a tile-pair rejection tile
 COL_TILE = 512      # columns per segment (the capture stratum)
 SENT = 2147483647   # empty-slot join hash
 _PAD = 1.0e18
@@ -326,6 +326,9 @@ def rowcap_capture(q: torch.Tensor, lo2, hi2, row_cap: int, inv=0.0,
         None if t is None else t.contiguous()
         for t in (normals, aux, rcscore, rowb, colb))
     seg_q = row_cap // (n_pad // COL_TILE)
+    # the kernel's padded float4 planes: points, normals, scores/angle
+    planes = 1 + int(use_normals) + int(use_rowcol or use_angle)
+    work = torch.empty((planes * n_pad, 4), dtype=torch.float32, device=dev)
     cols = torch.empty((n_pad, row_cap), dtype=torch.int32, device=dev)
     rc = torch.zeros(n_pad, dtype=torch.int32, device=dev)
     h = (torch.empty((n_pad, row_cap), dtype=torch.int32, device=dev)
@@ -338,7 +341,8 @@ def rowcap_capture(q: torch.Tensor, lo2, hi2, row_cap: int, inv=0.0,
             int(emit_hash), _ptr(normals), _ptr(aux), _ptr(rcscore),
             int(use_normals), int(use_rowcol), int(use_angle),
             _ptr(rowb), _ptr(colb), int(rowb is not None),
-            cols.data_ptr(), rc.data_ptr(), _ptr(h), stream),
+            work.data_ptr(), cols.data_ptr(), rc.data_ptr(), _ptr(h),
+            stream),
             "rowcap_capture")
     rowcap_capture.launches += 1
     rowcap_capture.filtered_launches += int(filtered)
@@ -357,7 +361,7 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, i, p, i, i, i, p, p, p, i, i, i, p, p, i,
-                       p, p, p, p]
+                       p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 

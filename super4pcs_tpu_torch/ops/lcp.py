@@ -7,8 +7,10 @@ in one batched min-distance pass,
 
     lcp(c) = (1/|Q|) * #{ i : min_j || T_c q_i - p_j ||^2 <= delta^2 },
 
-where the min-distance core is kernel K1 (``kernels/lcp.py``). The
-threshold and mean stay outside the kernel.
+where the min-distance core is kernel K1 (``kernels/lcp.py``), in its
+grid-pruned form ``lcp_min_d2_within``: it returns the min only where it
+is within epsilon, which is all the hit test reads. The threshold and
+mean stay outside the kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.lcp import lcp_min_d2
+from ..kernels.lcp import lcp_min_d2_within
 
 # Q-side padding sentinel: rows with |x| >= Q_PAD are excluded from the
 # LCP denominator, so a padded cloud's LCP equals its unpadded LCP
@@ -42,7 +44,7 @@ def lcp_scores(transforms, q_pos, p_pos, epsilon):
     the centered Q samples onto the centered P samples; a query counts
     when its nearest P point lies within ``epsilon`` (options.delta,
     ref:cc:517)."""
-    d2 = lcp_min_d2(transforms, q_pos, p_pos)
+    d2 = lcp_min_d2_within(transforms, q_pos, p_pos, epsilon)
     eps2 = float(np.float32(epsilon) * np.float32(epsilon))
     return _masked_lcp_mean(d2 <= eps2, q_pos)
 

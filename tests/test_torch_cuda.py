@@ -14,6 +14,8 @@ from super4pcs_tpu_torch.kernels import lcp as k1
 from super4pcs_tpu_torch.kernels import rowcap as k2
 from super4pcs_tpu_torch.ops import sampling
 
+from _within_cases import case as within_case
+
 pytestmark = pytest.mark.cuda
 
 
@@ -49,6 +51,73 @@ def test_lcp_kernel_bit_identical_to_plain(dev, c, nq, np_):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert k1.lcp_min_d2.launches == before + (np_ > 0)
+
+
+def _within_contract(tr, q, p, eps):
+    """``where(lcp_min_d2_plain <= eps2, ., inf)``, the contract of
+    lcp_min_d2_within."""
+    ref = k1.lcp_min_d2_plain(tr, q, p)
+    eps2 = float(np.float32(eps) * np.float32(eps))
+    return torch.where(ref <= eps2, ref, float("inf"))
+
+
+@pytest.mark.parametrize("eps", [0.05, 0.3])
+@pytest.mark.parametrize("c,nq,np_", [(1, 1, 1), (3, 100, 1025),
+                                      (64, 700, 3000), (513, 64, 2048),
+                                      (2, 300, 0)])
+def test_lcp_within_kernel_bit_identical_to_plain(dev, c, nq, np_, eps):
+    """The grid-pruned verify against its contract and its plain walk,
+    with a Q_PAD row and a NaN transform among the inputs."""
+    rng = np.random.default_rng(c + nq + np_)
+    tr = torch.as_tensor(_transforms(rng, c), device=dev)
+    q = torch.as_tensor(rng.uniform(-1, 1, (nq, 3)), dtype=torch.float32,
+                        device=dev)
+    p = torch.as_tensor(rng.uniform(-1, 1, (np_, 3)), dtype=torch.float32,
+                        device=dev)
+    if nq > 1:
+        q[-1] = 1.0e17
+    if c > 1:
+        tr[1, 0, 0] = float("nan")
+    before = k1.lcp_min_d2_within.launches
+    got = k1.lcp_min_d2_within(tr, q, p, eps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _within_contract(tr, q, p, eps))
+    assert torch.equal(got, k1.lcp_min_d2_within_plain(tr, q, p, eps))
+    assert k1.lcp_min_d2_within.launches == before + (np_ > 0)
+
+
+@pytest.mark.parametrize("name", ["at_eps", "at_eps_inexact", "q_pad",
+                                  "nan_transform", "eps_above_extent"])
+def test_lcp_within_kernel_boundary_cases(dev, name):
+    """The CPU tests' boundary cases on the card: lattice points at
+    exactly eps on cell boundaries, Q_PAD rows, NaN and inf transforms,
+    eps above P's extent. The kernel's box must take the cells that
+    torch's division gave P's points in the index."""
+    tr, q, p, eps = (torch.as_tensor(a, device=dev)
+                     if isinstance(a, np.ndarray) else a
+                     for a in within_case(name))
+    before = k1.lcp_min_d2_within.launches
+    got = k1.lcp_min_d2_within(tr, q, p, eps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _within_contract(tr, q, p, eps))
+    assert k1.lcp_min_d2_within.launches == before + 1
+    if name == "at_eps":
+        assert bool(torch.isfinite(got).all())  # d^2 == eps^2 counts
+
+
+def test_lcp_within_kernel_on_kd_ordered_sphere(dev):
+    """The matcher's layout: kd-ordered Q near a voxel-like P, eps at
+    the sampling step, small rigid motions."""
+    rng = np.random.default_rng(5)
+    p, _, _ = _kd_sphere(rng, 20000, dev)
+    q, _, _ = _kd_sphere(rng, 4096, dev)
+    tr = torch.as_tensor(_transforms(rng, 16), device=dev)
+    tr[:, :3, :3] = torch.eye(3, device=dev)
+    tr[:, :3, 3] *= 0.05
+    got = k1.lcp_min_d2_within(tr, q, p, 0.02)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _within_contract(tr, q, p, 0.02))
+    assert int(torch.isfinite(got).sum()) > 0
 
 
 @pytest.mark.parametrize("n,cap,emit", [(700, 24, True), (2500, 40, True),
@@ -170,10 +239,10 @@ def test_register_recipe_on_the_card(dev):
     R = np.array([[np.cos(ang), -np.sin(ang), 0],
                   [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
     source = (target - np.array([.4, -.2, .7], np.float32)) @ R
-    before = k1.lcp_min_d2.launches
+    before = k1.lcp_min_d2_within.launches
     res = s4t.register(target, source, overlap=0.9, delta=0.05,
                        sample_size=500, max_time_seconds=30, device=dev)
     moved = source @ res.transform[:3, :3].T + res.transform[:3, 3]
     assert res.score > 0.95
     assert np.median(np.linalg.norm(moved - target, axis=1)) < 0.05
-    assert k1.lcp_min_d2.launches > before
+    assert k1.lcp_min_d2_within.launches > before
