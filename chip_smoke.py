@@ -45,14 +45,33 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 5b. the filtered registration at the same width: radial normals and
    abs(pos) * 200 colors (tools/parity_configs.py:105-121), normal and
    color filters of BASELINE Config 3; same gates, filtered K2 launches;
+5c. the CLI from files (``cli.main``, as ``super4pcs-torch`` runs it):
+   the headline pair written as PLY with the port's writer (the read
+   time of a 100k-point file printed), ``-o 0.7 -d 0.01 -n 8192 -t 10
+   -m mat -r out``: exit 0, K1 and K2 launched, the Polyworks matrix
+   within rotDiff <= 0.2 / trDiff <= 0.1 of the known pose, and the
+   written geometry's LCP against P >= 0.7;
+5d. the same with the filtered clouds' normals and colors in the PLY
+   files and ``-a 20 -c 60``: the same gates, filtered K2 launches;
+5e. 4PCS (``-x``) on a generated 30,000-vertex bumpy-sphere OBJ mesh
+   (``f a//n`` faces; its read time printed) and a rotated copy, at the
+   reference demo's sample size: ``-n 200 -o 0.9 -d 0.05``. The dense
+   engine (K1, no K2), the pose gates, and ``-r out.obj`` keeps the
+   faces;
+5f. 5c with ``--tpu-opts direction_bins=healpix``: the same gates, its
+   quads_overflow printed;
+5g. ``register_sequence``: bench.py's synthetic 4-view sequence with
+   its options (K1 only), then the 100k-point bumpy sphere cut into the
+   same 4 views at delta 0.01, sample_size 8192 (K1 and K2); every step
+   within rotDiff <= 0.2 / trDiff <= 0.1, its search seconds printed;
 6. the 500-point known-pose recipe on the GPU (dense engine,
    lcp_min_d2_within only);
 7. a profile of headline steps: device busy and idle share per step,
    kernels per step, time by kernel, with the kernels of K1's index
    build (the wrapper's "grid_index" range) counted under K1: the
    verify's ms per step, kernel and index;
-8. one JSON line of per-kernel results, then the last line
-   {"ok": true, "device": {...}}.
+8. one line of the entry points' numbers (5c-5g), one JSON line of
+   per-kernel results, then the last line {"ok": true, "device": {...}}.
 
 Kernel times are device times from torch.profiler (K2's includes its
 prep kernel, which writes the padded column planes once per call); the
@@ -63,14 +82,15 @@ filtered registration once per seed with tile-pair rejection on and
 once with it off (alternating which goes first), and prints each run's
 search seconds, trials and LCP and the medians.
 
-Each registration (5, 5b, 6) is a path of its own: the launch counts
-are set to 0 just before it and read just after.
+Each registration (5, 5b, 5c-5g, 6) is a path of its own: the launch
+counts are set to 0 just before it and read just after.
 
 Exits with code 2 and prints no result when no CUDA device is present.
 """
 
 import collections
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -335,6 +355,320 @@ def _seed_runs(seeds, opts, fopts, clouds, s4):
         _log(f"seeds {label}: median search_s rejection on "
              f"{np.median(search[True]):.3f}, off "
              f"{np.median(search[False]):.3f}")
+
+
+def _read_polyworks(path):
+    """The 4x4 matrix of a Polyworks matrix file (the CLI's ``-m``)."""
+    import numpy as np
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if lines[:2] != ["VERSION\t=\t1", "MATRIX\t="] or len(lines) != 6:
+        raise SystemExit(f"{path} is not a Polyworks matrix file")
+    return np.array([[float(x) for x in ln.split()] for ln in lines[2:]])
+
+
+@contextlib.contextmanager
+def _recording(cli, runs):
+    """Within the block, the matchers that ``cli.main`` builds append
+    their results to ``runs``: the CLI prints the score, not the stats
+    (search seconds, trials, overflow counters)."""
+    saved = cli.MatchSuper4PCS, cli.Match4PCS
+
+    def recorded(cls):
+        class Recorded(cls):
+            def compute_transformation(self, *args, **kw):
+                res = super().compute_transformation(*args, **kw)
+                runs.append(res)
+                return res
+        return Recorded
+
+    cli.MatchSuper4PCS, cli.Match4PCS = (recorded(c) for c in saved)
+    try:
+        yield
+    finally:
+        cli.MatchSuper4PCS, cli.Match4PCS = saved
+
+
+def _bumpy_mesh(n_lat=150, n_lon=200):
+    """A bumpy-sphere grid mesh (the bench.py surface on a latitude x
+    longitude grid, poles left out): (n_lat * n_lon, 3) positions,
+    unit vertex normals (area-weighted face normals) and the triangles,
+    int32."""
+    import numpy as np
+    th = np.linspace(0.0, np.pi, n_lat + 2)[1:-1]
+    ph = np.linspace(0.0, 2.0 * np.pi, n_lon, endpoint=False)
+    t, f = np.meshgrid(th, ph, indexing="ij")
+    v = np.stack([np.sin(t) * np.cos(f), np.sin(t) * np.sin(f), np.cos(t)],
+                 -1).reshape(-1, 3)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    pos = v * bump[:, None]
+    i, j = np.meshgrid(np.arange(n_lat - 1), np.arange(n_lon), indexing="ij")
+    a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+    c, d = a + n_lon, b + n_lon
+    tris = np.concatenate([np.stack([a, b, d], -1).reshape(-1, 3),
+                           np.stack([a, d, c], -1).reshape(-1, 3)])
+    fn = np.cross(pos[tris[:, 1]] - pos[tris[:, 0]],
+                  pos[tris[:, 2]] - pos[tris[:, 0]])
+    nrm = np.zeros_like(pos)
+    for k in range(3):
+        np.add.at(nrm, tris[:, k], fn)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return (pos.astype(np.float32), nrm.astype(np.float32),
+            tris.astype(np.int32))
+
+
+def _axis_rot(axis, ang):
+    """Rotation of ``ang`` radians about ``axis`` (Rodrigues)."""
+    import numpy as np
+    k = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(ang) * kx + (1 - np.cos(ang)) * kx @ kx
+
+
+def _cli_paths(P, Q, fP, fQ, s4, counters, by_path):
+    """Phases 5c-5f: the CLI from files, each run a path of its own.
+    Returns a dict of the numbers each run printed."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from super4pcs_tpu_torch import cli
+    from super4pcs_tpu_torch import io as sio
+    from super4pcs_tpu_torch.ops import lcp
+
+    dev = torch.device("cuda")
+    gt = _ground_truth()
+    p_full = torch.as_tensor(P, device=dev)
+
+    def run(label, argv, mat, pose, need_k2):
+        """cli.main(argv) as one path (its progress lines kept out of
+        the log), then the gates: exit 0, K1 launched and K2 launched
+        or not as ``need_k2`` says, the matrix file ``mat`` within
+        rotDiff <= 0.2 / trDiff <= 0.1 of ``pose``."""
+        runs, text = [], io.StringIO()
+
+        def call():
+            with _recording(cli, runs), contextlib.redirect_stdout(text):
+                return cli.main(argv)
+
+        rc, counts, wall, peak = _run_path(label, call, counters)
+        by_path[label] = counts
+        score = [ln for ln in text.getvalue().splitlines()
+                 if ln.startswith("Score: ")]
+        if rc != 0 or not runs:
+            _log(text.getvalue()[-2000:])
+            raise SystemExit(f"{label}: the CLI exited {rc}")
+        res = runs[0]
+        rot_diff, tr_diff = s4.reference_pose_diff(_read_polyworks(mat),
+                                                   pose)
+        st = res.stats
+        _log(f"{label}: exit {rc}, {score[-1] if score else 'no score'} "
+             f"trials={res.n_trials} search_s={st['search_seconds']:.3f} "
+             f"wall_s={wall:.3f} rotDiff={rot_diff:.4f} trDiff="
+             f"{tr_diff:.4f} quads_overflow={st['quads_overflow']} "
+             f"pairs_overflow={st['pairs_overflow']} escalated_to="
+             f"{st.get('escalated_to', '-')} peak_MiB={peak:.1f}")
+        if counts["lcp_min_d2_within"] <= 0 or (
+                (counts["rowcap_capture"] > 0) != need_k2):
+            raise SystemExit(f"{label}: K1 launched "
+                             f"{counts['lcp_min_d2_within']} times, K2 "
+                             f"{counts['rowcap_capture']} (wanted "
+                             f"{'some' if need_k2 else 'none'})")
+        if not (rot_diff <= 0.2 and tr_diff <= 0.1):
+            raise SystemExit(f"{label} missed the pose gates")
+        return res, counts
+
+    def out_lcp(path):
+        """LCP of the registered geometry the CLI wrote against P (all
+        points, at the run's delta)."""
+        moved, _ = sio.read_object(path)
+        q = torch.as_tensor(moved.pos, device=dev)
+        return float(lcp.lcp_score_single(
+            torch.eye(4, device=dev), q, p_full, 0.01))
+
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def f(name):
+            return os.path.join(tmp, name)
+
+        # 5c. the headline from PLY files
+        sio.write_ply(f("P.ply"), s4.PointCloud(P))
+        sio.write_ply(f("Q.ply"), s4.PointCloud(Q))
+        t0 = time.perf_counter()
+        back = sio.read_ply(f("P.ply"))
+        read_ms = 1e3 * (time.perf_counter() - t0)
+        if not np.array_equal(back.pos, P):
+            raise SystemExit("the PLY round trip changed P")
+        _log(f"PLY read of {len(P)} points (binary, positions only): "
+             f"{read_ms:.1f} ms")
+        base = ["super4pcs-torch", "-i", f("P.ply"), f("Q.ply"), "-o", "0.7",
+                "-d", "0.01", "-n", "8192", "-t", "10", "-m", f("m.txt"),
+                "-r", f("out.ply")]
+        res, _ = run("cli", base + ["--tpu-opts", "random_seed=1"],
+                     f("m.txt"), gt, True)
+        lcp_c = out_lcp(f("out.ply"))
+        _log(f"cli: LCP of the written geometry against P: {lcp_c:.4f}")
+        if lcp_c < 0.7:
+            raise SystemExit("cli: the written geometry misses LCP 0.7")
+        numbers["cli"] = dict(search_s=res.stats["search_seconds"],
+                              trials=res.n_trials, lcp=lcp_c,
+                              ply_read_ms=read_ms)
+
+        # 5d. filtered: normals and colors through PLY, -a 20 -c 60
+        sio.write_ply(f("fP.ply"), fP)
+        sio.write_ply(f("fQ.ply"), fQ)
+        argv = list(base)
+        argv[2:4] = [f("fP.ply"), f("fQ.ply")]
+        res, counts = run("cli-filtered", argv + [
+            "-a", "20", "-c", "60", "--tpu-opts", "random_seed=1"],
+            f("m.txt"), gt, True)
+        if counts["rowcap_capture_filtered"] <= 0:
+            raise SystemExit("cli-filtered: no filtered K2 launch")
+        lcp_d = out_lcp(f("out.ply"))
+        _log(f"cli-filtered: LCP of the written geometry against P: "
+             f"{lcp_d:.4f}")
+        if lcp_d < 0.7:
+            raise SystemExit("cli-filtered: the written geometry misses "
+                             "LCP 0.7")
+        numbers["cli-filtered"] = dict(search_s=res.stats["search_seconds"],
+                                       trials=res.n_trials, lcp=lcp_d)
+
+        # 5e. 4PCS on a mesh at the reference demo's sample size (the
+        # hippo demo's -n 200; the hippo assets are not in the repo)
+        mpos, mnrm, tris = _bumpy_mesh()
+        rot = _axis_rot([1, 1, 0], 0.6)
+        shift = np.array([0.05, 0.1, -0.1])
+        mesh = sio.Mesh(tris=tris, tri_norm=tris)
+        sio.write_obj(f("m1.obj"), s4.PointCloud(mpos, normal=mnrm), mesh)
+        sio.write_obj(f("m2.obj"), s4.PointCloud(
+            (mpos @ rot.T + shift).astype(np.float32),
+            normal=(mnrm @ rot.T).astype(np.float32)), mesh)
+        mgt = np.eye(4)
+        mgt[:3, :3] = rot.T
+        mgt[:3, 3] = -rot.T @ shift
+        t0 = time.perf_counter()
+        sio.read_obj(f("m1.obj"))
+        obj_ms = 1e3 * (time.perf_counter() - t0)
+        _log(f"OBJ read of {len(mpos)} vertices, {len(tris)} a//n faces: "
+             f"{obj_ms:.1f} ms")
+        res, _ = run("cli-4pcs-mesh", [
+            "super4pcs-torch", "-i", f("m1.obj"), f("m2.obj"), "-x", "-n",
+            "200", "-o", "0.9", "-d", "0.05", "-t", "10", "-m", f("m.txt"),
+            "-r", f("out.obj"), "--tpu-opts", "random_seed=1"],
+            f("m.txt"), mgt, False)
+        back, back_mesh = sio.read_object(f("out.obj"))
+        err = float(np.median(np.linalg.norm(back.pos - mpos, axis=1)))
+        _log(f"cli-4pcs-mesh: {len(mpos)} vertices, {len(tris)} faces; "
+             f"written {len(back)} vertices, "
+             f"{0 if back_mesh is None else len(back_mesh.tris)} faces, "
+             f"median vertex error {err:.2e}")
+        if back_mesh is None or not np.array_equal(back_mesh.tris, tris):
+            raise SystemExit("cli-4pcs-mesh: the written OBJ lost the faces")
+        if err > 0.05:
+            raise SystemExit("cli-4pcs-mesh: the written mesh is off P")
+        numbers["cli-4pcs-mesh"] = dict(search_s=res.stats["search_seconds"],
+                                        trials=res.n_trials, score=res.score,
+                                        obj_read_ms=obj_ms)
+
+        # 5f. HEALPix direction bins at the headline's width
+        res, _ = run("cli-healpix", base + [
+            "--tpu-opts", "direction_bins=healpix,random_seed=1"],
+            f("m.txt"), gt, True)
+        lcp_f = out_lcp(f("out.ply"))
+        _log(f"cli-healpix: LCP of the written geometry against P: "
+             f"{lcp_f:.4f}; score {res.score:.4f} quads_overflow "
+             f"{res.stats['quads_overflow']} n_congruent "
+             f"{res.stats['n_congruent']}")
+        if lcp_f < 0.7:
+            raise SystemExit("cli-healpix: the written geometry misses "
+                             "LCP 0.7")
+        numbers["cli-healpix"] = dict(
+            search_s=res.stats["search_seconds"], trials=res.n_trials,
+            lcp=lcp_f, score=res.score,
+            quads_overflow=res.stats["quads_overflow"])
+    return numbers
+
+
+def _sequence_views(model):
+    """bench.py's synthetic sequence (bench.py:169-193): four views of
+    ``model``, 65% of its x extent wide, starting at 0, 0.15, 0.3 and
+    0.35, each moved into its own frame by its ground truth."""
+    import numpy as np
+    from super4pcs_tpu_torch.sequence import _quat_to_rot
+
+    def aa_quat(axis, angle):
+        axis = np.asarray(axis, np.float64)
+        axis = axis / np.linalg.norm(axis)
+        return (np.cos(angle / 2), *(axis * np.sin(angle / 2)))
+
+    quats = [aa_quat([0, 0, 1], 0.0), aa_quat([0, 1, 0], 0.9),
+             aa_quat([1, 0, 1], -0.7), aa_quat([1, 1, 0], 1.3)]
+    trs = [[0, 0, 0], [0.10, -0.05, 0.08], [-0.07, 0.12, 0.02],
+           [0.04, 0.06, -0.11]]
+    gts = []
+    for q, t in zip(quats, trs):
+        m = np.eye(4)
+        m[:3, :3] = _quat_to_rot(*q)
+        m[:3, 3] = -m[:3, :3] @ np.asarray(t, np.float64)
+        gts.append(m.astype(np.float32))
+    x = model[:, 0]
+    lo, hi = x.min(), x.max()
+    scans = []
+    for s, m in zip([0.0, 0.15, 0.3, 0.35], gts):
+        a = lo + s * (hi - lo)
+        v = model[(x >= a) & (x <= a + 0.65 * (hi - lo))]
+        scans.append((v @ m[:3, :3].T + m[:3, 3]).astype(np.float32))
+    return scans, gts
+
+
+def _sequence_paths(P, s4, counters, by_path):
+    """Phase 5g: register_sequence on bench.py's synthetic sequence with
+    its options, then at the headline's width. Returns the search
+    seconds of each step."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    v = rng.normal(size=(4000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    synth = (v * bump[:, None]).astype(np.float32)
+    configs = (
+        ("sequence", synth, s4.Options(
+            delta=0.03, sample_size=300, max_time_seconds=90,
+            bases_per_step=16, max_quads=2048, max_candidates=4096,
+            p_sample_budget=1024, random_seed=5), False),
+        ("sequence-full", P, s4.Options(
+            delta=0.01, sample_size=8192, max_time_seconds=30,
+            random_seed=5), True))
+    numbers = {}
+    for label, model, opts, need_k2 in configs:
+        scans, gts = _sequence_views(model)
+        steps, counts, wall, _ = _run_path(
+            label, lambda: s4.register_sequence(
+                [s4.PointCloud(s) for s in scans],
+                opts.configure_overlap(0.5, 0.6), gt_transforms=gts,
+                device="cuda"), counters)
+        by_path[label] = counts
+        numbers[label] = []
+        for st in steps:
+            r = st.result
+            numbers[label].append(r.stats["search_seconds"])
+            _log(f"{label} step {st.index}: scan of "
+                 f"{len(scans[st.index])} points, score="
+                 f"{r.score:.4f} trials={r.n_trials} search_s="
+                 f"{r.stats['search_seconds']:.3f} rotDiff="
+                 f"{st.rot_diff:.4f} trDiff={st.tr_diff:.4f}")
+        _log(f"{label}: wall_s={wall:.3f}")
+        if counts["lcp_min_d2_within"] <= 0 or (
+                need_k2 and counts["rowcap_capture"] <= 0):
+            raise SystemExit(f"{label}: a kernel of the path never "
+                             f"launched")
+        if not all(st.rot_diff <= 0.2 and st.tr_diff <= 0.1
+                   for st in steps):
+            raise SystemExit(f"{label}: a step missed the pose gates")
+    return numbers
 
 
 def main() -> int:
@@ -773,6 +1107,10 @@ def main() -> int:
          f"unfiltered headline {pairs_headline:.0f} "
          f"({pairs_filtered / max(pairs_headline, 1):.3f}x)")
 
+    # 5c-5f. the CLI from files; 5g. register_sequence
+    file_numbers = _cli_paths(P, Q, fP, fQ, s4, counters, by_path)
+    file_numbers.update(_sequence_paths(P, s4, counters, by_path))
+
     # 6. the 500-point known-pose recipe (dense engine, K1 only: its
     # pruned verify)
     r2 = np.random.default_rng(11)
@@ -881,6 +1219,7 @@ def main() -> int:
                  sys.argv[sys.argv.index("--seeds") + 1].split(",")]
         _seed_runs(seeds, opts, fopts, ((s4.PointCloud(P), s4.PointCloud(Q)),
                                         (fP, fQ)), s4)
+    _log("entry points:", json.dumps(file_numbers))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ PyTorch; the two TPU kernels of the main path are hand-written CUDA
 kernels (``csrc/``, built with nvcc at first use): the LCP min-distance
 kernel (``kernels/lcp.py``) and the band-capture kernel
 (``kernels/rowcap.py``). On CPU tensors every kernel wrapper runs its
-plain PyTorch version instead.
+plain PyTorch version instead. Entry points: :func:`register`, the
+matchers, :func:`register_sequence`, and the ``super4pcs-torch`` CLI
+(``cli.py``, reading and writing files through ``io/``).
 
 The package never imports jax. Float32 throughout: TF32 matmuls and
 convolutions are switched off below, because the fits and the verify
@@ -25,7 +27,7 @@ from .matcher import (Match4PCS, MatchSuper4PCS,  # noqa: E402
                       RegistrationResult, state_from_jax)
 from .api import register  # noqa: E402
 from .sequence import (SequenceStepResult, parse_stanford_conf,  # noqa: E402
-                       reference_pose_diff)
+                       reference_pose_diff, register_sequence)
 
 __version__ = "0.1.0"
 
@@ -36,6 +38,7 @@ __all__ = [
     "MatchSuper4PCS",
     "RegistrationResult",
     "register",
+    "register_sequence",
     "state_from_jax",
     "parse_stanford_conf",
     "reference_pose_diff",

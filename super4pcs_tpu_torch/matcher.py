@@ -24,8 +24,8 @@ escalation compile (escalation here is a synchronous rebuild of the
 step at the wider factor), the two-steps-in-flight pipelining, the phase
 probes and the roofline model. Not ported yet (they raise
 ``NotImplementedError``): similarity mode (``estimate_scale``), the
-banded and allpairs engines, HEALPix bins, and bases-axis sharding
-(``mesh``). See ROADMAP.md.
+banded and allpairs engines, and bases-axis sharding (``mesh``). See
+ROADMAP.md.
 
 Randomness comes from a ``torch.Generator`` reseeded per step from
 ``(random_seed, step index)``, so a resumed run draws the trials an
@@ -124,8 +124,6 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
     if opts.bases_per_step is None:
         opts = opts.replace(bases_per_step=resolve_bases_per_step(opts, nq))
     engine = resolve_pair_engine(opts, nq)
-    if opts.direction_bins != "cone":
-        raise _not_ported(f"direction_bins={opts.direction_bins!r}")
     # Capacity defaults (the JAX package's block, rigid engines only):
     # pair counts scale ~ nq^2 * shell fraction; the rowcap engine
     # captures 64 * nq, the dense one 16 * nq (widened under coarse
@@ -235,7 +233,9 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
             if dense_join:
                 quads, qvalid, qcount = congruent.find_congruent_quads(
                     q_pos, pairs1, v1, pairs2, v2, inv1[b], inv2[b],
-                    dist_thr, cos_alpha[b], cone_tol, k_quads)
+                    dist_thr, cos_alpha[b], cone_tol, k_quads,
+                    direction_bins=opts.direction_bins,
+                    healpix_nside=opts.healpix_nside)
                 qdropped = q_sub = zero
             else:
                 quads, qvalid, qcount, qdropped, q_sub = \
@@ -244,6 +244,8 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
                         dist_thr, cos_alpha[b], cone_tol, k_quads,
                         cell_candidates=opts.cell_candidates,
                         q_budget=opts.join_q_budget,
+                        direction_bins=opts.direction_bins,
+                        healpix_nside=opts.healpix_nside,
                         cell_size=cell_size, row_cap=join_row_cap,
                         table_hash=thash, probe_budget=probe_budget)
             quads_b.append(quads)

@@ -10,16 +10,20 @@ PyTorch counterpart of ``super4pcs_tpu.ops.congruent`` (the reference's
 
 Both keep the JAX package's squared-vs-squared join threshold
 (``d^2 <= threshold^2``; the reference compares a squared distance with
-an unsquared radius) and its exact cone mask
-``|dir1 . dir2 - cos(alpha)| <= tol`` in Super4PCS mode. HEALPix
-direction bins are not ported.
+an unsquared radius). In Super4PCS mode both apply a direction filter:
+the exact cone mask ``|dir1 . dir2 - cos(alpha)| <= tol`` (the default)
+or the HEALPix bins of the reference's ``IndexedNormalHealSet``
+(:func:`healpix_circle_pixels`).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from . import healpix as _healpix
 from .masking import masked_indices, masked_indices_2d
 from ..kernels.rowcap import SENT, cell_hash_of
 
@@ -42,24 +46,80 @@ def pair_directions(pos, pairs):
     return d / torch.clamp(_norm3(d), min=1e-30)[:, None]
 
 
-def _no_healpix(direction_bins: str):
-    if direction_bins != "cone":
-        raise NotImplementedError(
-            f"direction_bins={direction_bins!r} is not ported to "
-            "super4pcs_tpu_torch (see ROADMAP)")
+# ---------------------------------------------------------------------------
+# HEALPix direction filter: the reference's deprecated
+# ``IndexedNormalHealSet`` (ref:src/super4pcs/accelerators/
+# normalHealSet.h:270-321). The circle of directions at angle alpha
+# around each query direction is sampled and rasterized into ring-scheme
+# pixels; a candidate passes iff its direction's pixel is among them.
+# Tolerance is implicit in the bin resolution (nside), as in the
+# reference.
+# ---------------------------------------------------------------------------
+
+
+def healpix_circle_pixels(dirs, cos_alpha, nside: int, samples: int = 32):
+    """Ring-scheme pixels rasterized by the circle of directions at angle
+    ``alpha`` (given as its cosine) around each row of ``dirs`` (K, 3).
+
+    Returns (K, samples) int32 pixel ids (duplicates possible — callers
+    use membership, not counts). The circle is sampled at the angles
+    ``t`` the JAX package uses (``linspace(0, 2 pi, samples,
+    endpoint=False)`` in float32: ``2 pi * (i / samples)``).
+    """
+    dirs = torch.as_tensor(dirs, dtype=torch.float32)
+    dev = dirs.device
+    cos_a = torch.clamp(torch.as_tensor(cos_alpha, dtype=torch.float32,
+                                        device=dev), -1.0, 1.0)
+    sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+
+    # orthonormal frame (u, v) perpendicular to each direction; seed with
+    # the least-aligned coordinate axis for stability
+    ax = torch.argmin(dirs.abs(), dim=-1)                      # (K,)
+    seed = torch.eye(3, dtype=torch.float32, device=dev)[ax]   # (K, 3)
+    u = torch.linalg.cross(dirs, seed)
+    u = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1, keepdim=True),
+                        min=1e-30)
+    v = torch.linalg.cross(dirs, u)
+
+    # the step i / samples divides by a device tensor: on CUDA a host
+    # scalar divisor becomes a multiply by its reciprocal
+    step = (torch.arange(samples, dtype=torch.float32, device=dev)
+            / torch.full((), samples, dtype=torch.float32, device=dev))
+    t = (2.0 * math.pi) * step
+    circ = (cos_a * dirs[:, None, :]
+            + sin_a * (torch.cos(t)[None, :, None] * u[:, None, :]
+                       + torch.sin(t)[None, :, None] * v[:, None, :]))
+    return _healpix.vec2pix_ring(nside, circ)                  # (K, S)
+
+
+def _healpix_membership(pix_cand, circle_pix):
+    """``pix_cand`` (...,) vs per-candidate pixel sets ``circle_pix``
+    (..., S): True where the candidate pixel appears in the set. One
+    sample at a time, so no (..., S) comparison tensor is formed."""
+    hit = torch.zeros(torch.broadcast_shapes(pix_cand.shape,
+                                             circle_pix.shape[:-1]),
+                      dtype=torch.bool, device=pix_cand.device)
+    for s in range(circle_pix.shape[-1]):
+        hit |= pix_cand == circle_pix[..., s]
+    return hit
 
 
 def find_congruent_quads(pos, pairs1, valid1, pairs2, valid2,
                          invariant1, invariant2, distance_threshold,
                          base_cos_alpha, cone_cos_tolerance,
-                         capacity: int, direction_bins: str = "cone"):
+                         capacity: int, direction_bins: str = "cone",
+                         healpix_nside: int = 4):
     """Dense join of the two pair sets on invariant-point proximity.
+
+    ``direction_bins`` selects the Super4PCS direction filter: "cone"
+    (exact mask, the default) or "healpix" (rasterized ring-scheme bins,
+    see :func:`healpix_circle_pixels`). Ignored when
+    ``cone_cos_tolerance < 0`` (4PCS mode).
 
     Returns (quads (capacity, 4) int64 = (a, b, c, d), valid
     (capacity,), count). Quad layout matches ref:super4pcs.cc:172-173:
     (P_pair.first, P_pair.second, Q_pair.first, Q_pair.second).
     """
-    _no_healpix(direction_bins)
     e1 = invariant_points(pos, pairs1, invariant1)     # (K1, 3)
     e2 = invariant_points(pos, pairs2, invariant2)     # (K2, 3)
     d = [e1[:, None, c] - e2[None, :, c] for c in range(3)]
@@ -67,9 +127,16 @@ def find_congruent_quads(pos, pairs1, valid1, pairs2, valid2,
     mask = d2 <= distance_threshold * distance_threshold
     mask &= valid1[:, None] & valid2[None, :]
     if cone_cos_tolerance >= 0:
-        cos12 = pair_directions(pos, pairs1) @ pair_directions(pos,
-                                                               pairs2).T
-        mask &= (cos12 - base_cos_alpha).abs() <= cone_cos_tolerance
+        dir1 = pair_directions(pos, pairs1)
+        dir2 = pair_directions(pos, pairs2)
+        if direction_bins == "healpix":
+            pix1 = _healpix.vec2pix_ring(healpix_nside, dir1)   # (K1,)
+            circ = healpix_circle_pixels(dir2, base_cos_alpha,
+                                         healpix_nside)
+            mask &= _healpix_membership(pix1[:, None], circ[None])
+        else:
+            mask &= (dir1 @ dir2.T - base_cos_alpha).abs() \
+                <= cone_cos_tolerance
     k2 = pairs2.shape[0]
     flat_idx, valid, count = masked_indices_2d(mask, capacity)
     quads = torch.cat([pairs1[flat_idx // k2], pairs2[flat_idx % k2]],
@@ -107,7 +174,8 @@ def find_congruent_quads_grid(
     pos, pairs1, valid1, pairs2, valid2, invariant1, invariant2,
     distance_threshold, base_cos_alpha, cone_cos_tolerance,
     capacity: int, cell_candidates: int = 16, q_budget: int | None = None,
-    direction_bins: str = "cone", row_cap: int | None = None,
+    direction_bins: str = "cone", healpix_nside: int = 4,
+    row_cap: int | None = None,
     probe_budget: int | None = None, cell_size: float | None = None,
     table_hash=None, allpairs_cols: bool = False, q_uniform: bool = False,
 ):
@@ -118,7 +186,8 @@ def find_congruent_quads_grid(
     hash (low bit cleared, stable, so ties keep index order); each
     second-set invariant point probes the w^3 window cells covering its
     radius-r ball, takes up to ``cell_candidates`` table entries per
-    cell, and validates them exactly (distance + cone mask).
+    cell, and validates them exactly (distance, then the direction
+    filter of ``direction_bins`` as in :func:`find_congruent_quads`).
 
     Inputs as in the JAX package: ``pairs1``/``pairs2`` are (K, 2)
     pairs, or 1-D cols-only tables in the row-capped layout (slot ``s``
@@ -145,7 +214,6 @@ def find_congruent_quads_grid(
     drops, ``q_subsampled`` the second-side pairs beyond the budget (in
     probe units).
     """
-    _no_healpix(direction_bins)
     if allpairs_cols or q_uniform:
         raise NotImplementedError(
             "allpairs_cols / q_uniform (scale mode) are not ported to "
@@ -255,7 +323,8 @@ def find_congruent_quads_grid(
     trow = table_rows(orid)
     tcol = cols1[orid]
 
-    # exact validation: invariant-point distance, then the cone mask
+    # exact validation: invariant-point distance, then the direction
+    # filter
     e2_c = e2[qi].T                                           # (3, PB)
     g = e1_components(trow, tcol)
     dd = [ec - e2_c[c][None, :] for c, (_, _, ec) in enumerate(g)]
@@ -269,10 +338,17 @@ def find_congruent_quads_grid(
             (dxc[0] * dxc[0] + dxc[1] * dxc[1]) + dxc[2] * dxc[2]),
             min=1e-30)
         dir2 = d2v / torch.clamp(_norm3(d2v), min=1e-30)[:, None]
-        d2q = dir2[qi]                                        # (PB, 3)
-        cos12 = ((dxc[0] * d2q[None, :, 0] + dxc[1] * d2q[None, :, 1])
-                 + dxc[2] * d2q[None, :, 2]) / n1g
-        mask &= (cos12 - base_cos_alpha).abs() <= cone_cos_tolerance
+        if direction_bins == "healpix":
+            circ = healpix_circle_pixels(dir2, base_cos_alpha,
+                                         healpix_nside)
+            pix_cand = _healpix.ang2pix_ring(
+                healpix_nside, dxc[2] / n1g, torch.atan2(dxc[1], dxc[0]))
+            mask &= _healpix_membership(pix_cand, circ[qi][None])
+        else:
+            d2q = dir2[qi]                                    # (PB, 3)
+            cos12 = ((dxc[0] * d2q[None, :, 0] + dxc[1] * d2q[None, :, 1])
+                     + dxc[2] * d2q[None, :, 2]) / n1g
+            mask &= (cos12 - base_cos_alpha).abs() <= cone_cos_tolerance
 
     sel, valid, count = masked_indices_2d(mask, capacity)
     orid_sel = orid.reshape(-1)[sel]

@@ -23,9 +23,8 @@ ported; see ROADMAP.md):
   multi-step dispatch and bases-axis sharding are not ported.
 - ``phase_timing``: the telescoped phase probes are not ported.
 
-``estimate_scale=True``, ``pair_engine`` "banded"/"allpairs" and
-``direction_bins="healpix"`` raise ``NotImplementedError`` in the
-matcher.
+``estimate_scale=True`` and ``pair_engine`` "banded"/"allpairs" raise
+``NotImplementedError`` in the matcher.
 """
 
 from __future__ import annotations
@@ -154,10 +153,12 @@ class Options:
     #: knob lets tests exercise the grid path at any problem size.
     force_grid_join: bool = False
     #: Direction filter of the Super4PCS congruent join: "cone" (exact
-    #: dot-product mask, the default) or "healpix" (the reference's
-    #: deprecated ``IndexedNormalHealSet`` bins, not ported: raises).
+    #: dot-product mask, the default) or "healpix" (rasterized
+    #: ring-scheme bins, the reference's deprecated
+    #: ``IndexedNormalHealSet``; ops/healpix.py).
     direction_bins: str = "cone"
-    #: HEALPix nside of the "healpix" direction filter (not ported).
+    #: HEALPix nside resolution of the "healpix" direction filter
+    #: (12 * nside^2 pixels).
     healpix_nside: int = 4
     #: Search-stage tolerance multiplier. The pair distance band, the
     #: congruent-join radius and the rms gate (all DISTANCE_FACTOR *

@@ -246,3 +246,32 @@ def test_register_recipe_on_the_card(dev):
     assert res.score > 0.95
     assert np.median(np.linalg.norm(moved - target, axis=1)) < 0.05
     assert k1.lcp_min_d2_within.launches > before
+
+
+def test_cli_on_the_card(dev, tmp_path, capsys):
+    """The ``super4pcs-torch`` CLI with its default device, on the
+    recipe's clouds written as PLY: exit 0, the verify kernel launched,
+    and the Polyworks matrix moves the source onto the target."""
+    from super4pcs_tpu_torch import cli, io as sio
+    rng = np.random.default_rng(11)
+    v = rng.normal(size=(500, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    target = (v * bump[:, None]).astype(np.float32)
+    ang = 1.1
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    source = (target - np.array([.4, -.2, .7], np.float32)) @ R
+    p1, p2, mat = (str(tmp_path / n) for n in ("t.ply", "s.ply", "m.txt"))
+    sio.write_ply(p1, s4t.PointCloud(target))
+    sio.write_ply(p2, s4t.PointCloud(source))
+    before = k1.lcp_min_d2_within.launches
+    assert cli.main(["super4pcs-torch", "-i", p1, p2, "-o", "0.9", "-d",
+                     "0.05", "-n", "500", "-t", "30", "-m", mat]) == 0
+    assert "Score: " in capsys.readouterr().out
+    assert k1.lcp_min_d2_within.launches > before
+    rows = open(mat).read().splitlines()[2:]
+    m = np.array([[float(x) for x in r.split()] for r in rows])
+    moved = source @ m[:3, :3].T + m[:3, 3]
+    assert np.median(np.linalg.norm(moved - target, axis=1)) < 0.05

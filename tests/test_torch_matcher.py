@@ -204,9 +204,11 @@ def test_not_ported_paths_raise():
                                device="cpu").compute_transformation(pts, pts)
     with pytest.raises(NotImplementedError):
         s4t.MatchSuper4PCS(s4t.Options(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):       # HEALPix bins
-        tmatcher.build_step(s4t.Options(direction_bins="healpix"), 4096,
-                            0.3)
+    # HEALPix bins are ported: the step builds on both engines
+    for nq in (500, 4096):
+        step, caps = tmatcher.build_step(
+            s4t.Options(direction_bins="healpix"), nq, 0.3)
+        assert callable(step) and len(caps) == 3
     with pytest.raises(NotImplementedError):
         tmatcher.resolve_pair_engine(s4t.Options(), 70000)
     empty = s4t.MatchSuper4PCS(s4t.Options(), device="cpu") \

@@ -400,20 +400,17 @@ def test_join_helpers(rng):
         assert tc.probe_window(r, c) == jc.probe_window(r, c)
     np.testing.assert_array_equal(tc._window_offsets(3),
                                   jc._window_offsets(3))
-    for kw in (dict(allpairs_cols=True), dict(q_uniform=True),
-               dict(direction_bins="healpix")):
+    args = (_t(pos), torch.as_tensor(pairs), torch.ones(50, dtype=torch.bool),
+            torch.as_tensor(pairs), torch.ones(50, dtype=torch.bool), 0.3,
+            0.3, 0.1, 0.5, 0.3, 64)
+    for kw in (dict(allpairs_cols=True), dict(q_uniform=True)):
         with pytest.raises(NotImplementedError):
-            tc.find_congruent_quads_grid(
-                _t(pos), torch.as_tensor(pairs),
-                torch.ones(50, dtype=torch.bool), torch.as_tensor(pairs),
-                torch.ones(50, dtype=torch.bool), 0.3, 0.3, 0.1, 0.5, 0.3,
-                64, **kw)
-    with pytest.raises(NotImplementedError):
-        tc.find_congruent_quads(_t(pos), torch.as_tensor(pairs),
-                                torch.ones(50, dtype=torch.bool),
-                                torch.as_tensor(pairs),
-                                torch.ones(50, dtype=torch.bool), 0.3, 0.3,
-                                0.1, 0.5, 0.3, 64, direction_bins="healpix")
+            tc.find_congruent_quads_grid(*args, **kw)
+    # HEALPix bins run in both joins (parity: tests/test_torch_healpix.py)
+    grid = tc.find_congruent_quads_grid(*args, direction_bins="healpix")
+    dense = tc.find_congruent_quads(*args, direction_bins="healpix")
+    assert grid[0].shape == dense[0].shape == (64, 4)
+    assert int(grid[2]) == int(dense[2])
 
 
 # ------------------------------------------------------------------ refine

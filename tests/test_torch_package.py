@@ -28,7 +28,8 @@ def test_import_leaves_jax_out():
     """A fresh interpreter importing the port (all of its modules) has
     no jax in sys.modules."""
     code = ("import sys, super4pcs_tpu_torch, "
-            "super4pcs_tpu_torch.kernels._build; "
+            "super4pcs_tpu_torch.kernels._build, super4pcs_tpu_torch.cli, "
+            "super4pcs_tpu_torch.io, super4pcs_tpu_torch.ops.healpix; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'super4pcs_tpu.')) or m == 'super4pcs_tpu'))")
@@ -83,10 +84,10 @@ def test_configure_overlap_matches_jax():
 
 
 def test_public_names():
-    """The JAX package's public names, minus register_sequence (not
-    ported yet), plus the resume-state converter."""
-    expect = set(super4pcs_tpu.__all__) - {"register_sequence"}
-    assert expect <= set(super4pcs_tpu_torch.__all__)
+    """The JAX package's public names, plus the resume-state
+    converter."""
+    assert (set(super4pcs_tpu_torch.__all__)
+            == set(super4pcs_tpu.__all__) | {"state_from_jax"})
     for name in super4pcs_tpu_torch.__all__:
         assert hasattr(super4pcs_tpu_torch, name)
 
