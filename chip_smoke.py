@@ -64,13 +64,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    its options (K1 only), then the 100k-point bumpy sphere cut into the
    same 4 views at delta 0.01, sample_size 8192 (K1 and K2); every step
    within rotDiff <= 0.2 / trDiff <= 0.1, its search seconds printed;
+5h. similarity mode, hierarchical, through ``register``: the 50,000-
+   point scale fixture of tools/scale_hier_16k.py (Q = the headline
+   pose / 1.4, noise 0.008), ``delta=0.05, sample_size=16384,
+   estimate_scale=True``: the coarse similarity phase at scale_max_q
+   (2048, dense engine, K1) and the fine rigid phase on s * Q (rowcap,
+   K1 and K2 when its nq > 2048); LCP >= 0.95, scale error < 0.5% and
+   the pose with the scale divided out within rotDiff <= 0.2 / trDiff
+   <= 0.1; each phase's nq, engine, trials and seconds and the peak
+   device memory printed;
+5i. similarity mode through the allpairs engine (``MatchSuper4PCS``,
+   sample_size = scale_max_q = 4096, hierarchical off): the same
+   clouds and gates, K1 and no K2; then a step's wall and device time
+   (4 bases, each sorting a table of nq^2 rows) and the overflow
+   counters;
 6. the 500-point known-pose recipe on the GPU (dense engine,
    lcp_min_d2_within only);
 7. a profile of headline steps: device busy and idle share per step,
    kernels per step, time by kernel, with the kernels of K1's index
    build (the wrapper's "grid_index" range) counted under K1: the
    verify's ms per step, kernel and index;
-8. one line of the entry points' numbers (5c-5g), one JSON line of
+8. one line of the entry points' numbers (5c-5i), one JSON line of
    per-kernel results, then the last line {"ok": true, "device": {...}}.
 
 Kernel times are device times from torch.profiler (K2's includes its
@@ -82,7 +96,7 @@ filtered registration once per seed with tile-pair rejection on and
 once with it off (alternating which goes first), and prints each run's
 search seconds, trials and LCP and the medians.
 
-Each registration (5, 5b, 5c-5g, 6) is a path of its own: the launch
+Each registration (5, 5b, 5c-5i, 6) is a path of its own: the launch
 counts are set to 0 just before it and read just after.
 
 Exits with code 2 and prints no result when no CUDA device is present.
@@ -125,6 +139,7 @@ K2_ROW_THREAD_MS = {"headline": (0.089, 0.104), (8192, 0): 0.132,
 
 TH = 0.8                    # the headline pair's rotation about z
 SHIFT = (0.1, -0.05, 0.2)   # and its translation (bench.py:48-51)
+SCALE = 1.4                 # the scale fixture's Q is P's pose / SCALE
 
 
 def _log(*parts):
@@ -368,25 +383,28 @@ def _read_polyworks(path):
 
 
 @contextlib.contextmanager
-def _recording(cli, runs):
-    """Within the block, the matchers that ``cli.main`` builds append
-    their results to ``runs``: the CLI prints the score, not the stats
-    (search seconds, trials, overflow counters)."""
-    saved = cli.MatchSuper4PCS, cli.Match4PCS
+def _recording(module, runs):
+    """Within the block, the matchers that ``module`` (``cli`` or
+    ``api``) builds append ``(matcher, result)`` to ``runs`` as each run
+    ends: the CLI prints the score, not the stats (search seconds,
+    trials, overflow counters), and a hierarchical scale run's coarse
+    and fine phases are matchers of the same class, recorded before
+    their composed result."""
+    saved = module.MatchSuper4PCS, module.Match4PCS
 
     def recorded(cls):
         class Recorded(cls):
             def compute_transformation(self, *args, **kw):
                 res = super().compute_transformation(*args, **kw)
-                runs.append(res)
+                runs.append((self, res))
                 return res
         return Recorded
 
-    cli.MatchSuper4PCS, cli.Match4PCS = (recorded(c) for c in saved)
+    module.MatchSuper4PCS, module.Match4PCS = (recorded(c) for c in saved)
     try:
         yield
     finally:
-        cli.MatchSuper4PCS, cli.Match4PCS = saved
+        module.MatchSuper4PCS, module.Match4PCS = saved
 
 
 def _bumpy_mesh(n_lat=150, n_lon=200):
@@ -460,7 +478,7 @@ def _cli_paths(P, Q, fP, fQ, s4, counters, by_path):
         if rc != 0 or not runs:
             _log(text.getvalue()[-2000:])
             raise SystemExit(f"{label}: the CLI exited {rc}")
-        res = runs[0]
+        res = runs[0][1]
         rot_diff, tr_diff = s4.reference_pose_diff(_read_polyworks(mat),
                                                    pose)
         st = res.stats
@@ -668,6 +686,165 @@ def _sequence_paths(P, s4, counters, by_path):
         if not all(st.rot_diff <= 0.2 and st.tr_diff <= 0.1
                    for st in steps):
             raise SystemExit(f"{label}: a step missed the pose gates")
+    return numbers
+
+
+def _scale_pair(n=50_000):
+    """The scale fixture of tools/scale_hier_16k.py (BASELINE r3's, at
+    50,000 points): a bumpy sphere from numpy seed 21, moved by the
+    headline's rotation and shift, divided by SCALE, plus noise sigma
+    0.008. Returns (P, Q); Q -> P is SCALE times the headline's pose."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    pos = (v * bump[:, None]).astype(np.float32)
+    q = (((pos @ _rot().T) + np.float32(SHIFT)) / SCALE).astype(np.float32)
+    q += rng.normal(scale=0.008, size=q.shape).astype(np.float32)
+    return pos, q
+
+
+def _scale_gates(label, res, s4):
+    """The scale tool's gates (LCP >= 0.95, scale error < 0.5%) and the
+    pose of the transform with its scale divided out (rotDiff <= 0.2 /
+    trDiff <= 0.1). Returns (scale estimate, relative error)."""
+    import numpy as np
+    m = np.asarray(res.transform, np.float64)
+    s_est = float(np.linalg.norm(m[:3, :3], axis=0).mean())
+    err = abs(s_est - SCALE) / SCALE
+    pose = m.copy()
+    pose[:3, :3] /= s_est
+    gt = _ground_truth()
+    rot_diff, tr_diff = s4.reference_pose_diff(pose, gt)
+    t_err = float(np.linalg.norm(m[:3, 3] - gt[:3, 3]))
+    _log(f"{label}: score={res.score:.4f} scale={s_est:.5f} (error "
+         f"{100 * err:.3f}%) rotDiff={rot_diff:.4f} trDiff={tr_diff:.4f} "
+         f"|t - t_gt|={t_err:.4f} trials={res.n_trials}")
+    if not (res.score >= 0.95 and err < 0.005 and rot_diff <= 0.2
+            and tr_diff <= 0.1):
+        raise SystemExit(f"{label} missed its gates")
+    return s_est, err
+
+
+def _scale_paths(s4, counters, by_path):
+    """Phases 5h (hierarchical scale through ``register``) and 5i (the
+    allpairs engine through ``MatchSuper4PCS``), each a path of its own.
+    Returns the numbers each printed."""
+    import torch
+    from super4pcs_tpu_torch import api
+    P, Q = _scale_pair()
+    numbers = {}
+
+    # 5h. hierarchical: coarse similarity at scale_max_q, fine rigid on
+    # s * Q at full width
+    opts = s4.Options(delta=0.05, sample_size=16384, estimate_scale=True,
+                      random_seed=21, max_time_seconds=60
+                      ).configure_overlap(0.6, 0.9)
+    runs = []
+
+    def hier():
+        with _recording(api, runs):
+            return s4.register(P, Q, options=opts, device="cuda")
+
+    res, counts, wall, peak = _run_path("scale-hierarchical", hier, counters)
+    by_path["scale-hierarchical"] = counts
+    st = res.stats
+    if len(runs) != 3 or "hierarchical_scale" not in st:
+        raise SystemExit(f"scale-hierarchical: expected the coarse and "
+                         f"fine phases, got {len(runs)} runs, "
+                         f"{st.get('scale_hierarchical', 'composed')}")
+    phases = {}
+    for name, (m, r) in zip(("coarse", "fine"), runs[:2]):
+        nq = len(m.get_second_sampled())
+        phases[name] = dict(
+            nq=nq, np=len(m.get_first_sampled()),
+            engine=s4.matcher.resolve_pair_engine(m.options, nq),
+            bases_per_step=m._b_eff, trials=r.n_trials, lcp=r.score,
+            search_s=r.stats["search_seconds"])
+        _log(f"scale-hierarchical {name}: nq={nq} np={phases[name]['np']} "
+             f"engine={phases[name]['engine']} B={m._b_eff} "
+             f"trials={r.n_trials} score={r.score:.4f} "
+             f"search_s={r.stats['search_seconds']:.3f}")
+    _log(f"scale-hierarchical: hierarchical_scale="
+         f"{st['hierarchical_scale']:.5f} coarse_lcp={st['coarse_lcp']:.4f}"
+         f" coarse_trials={st['coarse_trials']} coarse_search_s="
+         f"{st['coarse_search_seconds']:.3f} fine_search_s="
+         f"{st['search_seconds']:.3f} wall_s={wall:.3f} "
+         f"peak_MiB={peak:.1f}")
+    s_est, err = _scale_gates("scale-hierarchical", res, s4)
+    need_k2 = phases["fine"]["nq"] > 2048
+    if counts["lcp_min_d2_within"] <= 0 or (
+            need_k2 and counts["rowcap_capture"] <= 0):
+        raise SystemExit(f"scale-hierarchical: K1 launched "
+                         f"{counts['lcp_min_d2_within']} times, K2 "
+                         f"{counts['rowcap_capture']} (fine nq "
+                         f"{phases['fine']['nq']})")
+    numbers["scale-hierarchical"] = dict(
+        phases=phases, hierarchical_scale=st["hierarchical_scale"],
+        coarse_search_s=st["coarse_search_seconds"],
+        fine_search_s=st["search_seconds"], wall_s=wall, peak_mib=peak,
+        score=res.score, scale=s_est, scale_err=err)
+
+    # 5i. the allpairs engine at nq = 4096 (BASELINE r3's larger size)
+    aopts = s4.Options(delta=0.05, sample_size=4096, scale_max_q=4096,
+                       scale_hierarchical=False, estimate_scale=True,
+                       random_seed=21, max_time_seconds=60
+                       ).configure_overlap(0.6, 0.9)
+    matchers = []
+
+    def allpairs():
+        m = s4.MatchSuper4PCS(aopts, device="cuda")
+        matchers.append(m)
+        return m.compute_transformation(s4.PointCloud(P), s4.PointCloud(Q))
+
+    res, counts, wall, peak = _run_path("scale-allpairs", allpairs, counters)
+    by_path["scale-allpairs"] = counts
+    m = matchers[0]
+    nq = len(m.get_second_sampled())
+    engine = s4.matcher.resolve_pair_engine(aopts, nq)
+    st = res.stats
+    steps = max(res.n_trials // m._b_eff, 1)
+    _log(f"scale-allpairs: nq={nq} np={len(m.get_first_sampled())} "
+         f"engine={engine} B={m._b_eff} table rows per base={nq * nq} "
+         f"steps={steps} search_s={st['search_seconds']:.3f} "
+         f"mean_step_s={st['search_seconds'] / steps:.3f} "
+         f"quads_overflow={st['quads_overflow']} cell_dropped="
+         f"{st['cell_dropped']} q_sampled_out={st['q_sampled_out']} "
+         f"n_congruent={st['n_congruent']} wall_s={wall:.3f} "
+         f"peak_MiB={peak:.1f}")
+    s_est, err = _scale_gates("scale-allpairs", res, s4)
+    if engine != "allpairs":
+        raise SystemExit(f"scale-allpairs resolved the {engine!r} engine")
+    if counts["lcp_min_d2_within"] <= 0 or counts["rowcap_capture"] != 0:
+        raise SystemExit(f"scale-allpairs: K1 launched "
+                         f"{counts['lcp_min_d2_within']} times, K2 "
+                         f"{counts['rowcap_capture']} (wanted none)")
+    # a step's wall and device time, outside the path: 2 steps timed,
+    # 2 under the profiler
+    m._run_step(100)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(101, 103):
+        m._run_step(i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 2
+    evs = _device_events(lambda: [m._run_step(i) for i in (103, 104)])
+    busy = sum(t for _, t, _ in evs) / 2 / 1e3
+    sort_ms = sum(t for name, t, _ in evs if "sort" in name.lower()) / 2e3
+    _log(f"scale-allpairs step (B={m._b_eff}, {m._b_eff} table sorts of "
+         f"{nq * nq} rows): wall {1e3 * step_s:.1f} ms, device busy "
+         f"{busy:.1f} ms (idle share {100 * (1 - busy / (1e3 * step_s)):.0f}"
+         f"%), sorts {sort_ms:.1f} ms, {len(evs) / 2:.0f} kernels")
+    numbers["scale-allpairs"] = dict(
+        nq=nq, engine=engine, trials=res.n_trials, steps=steps,
+        search_s=st["search_seconds"], step_wall_ms=1e3 * step_s,
+        step_busy_ms=busy, step_sort_ms=sort_ms,
+        quads_overflow=st["quads_overflow"],
+        cell_dropped=st["cell_dropped"],
+        q_sampled_out=st["q_sampled_out"], wall_s=wall, peak_mib=peak,
+        score=res.score, scale=s_est, scale_err=err)
     return numbers
 
 
@@ -1110,6 +1287,8 @@ def main() -> int:
     # 5c-5f. the CLI from files; 5g. register_sequence
     file_numbers = _cli_paths(P, Q, fP, fQ, s4, counters, by_path)
     file_numbers.update(_sequence_paths(P, s4, counters, by_path))
+    # 5h-5i. similarity mode
+    file_numbers.update(_scale_paths(s4, counters, by_path))
 
     # 6. the 500-point known-pose recipe (dense engine, K1 only: its
     # pruned verify)

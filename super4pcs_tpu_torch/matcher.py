@@ -16,22 +16,28 @@ PyTorch counterpart of ``super4pcs_tpu.matcher``, the re-architecture of
   stream as the JAX package;
 - RANSAC state is an explicit dict (:meth:`export_state`), and a run
   resumes from the JAX package's exported state too
-  (:func:`state_from_jax`).
+  (:func:`state_from_jax`);
+- similarity mode (``estimate_scale``, the reference's MULTISCALE
+  build) runs the dense engine up to nq = 2048 and the "allpairs"
+  implicit-table engine above, and above ``scale_max_q`` samples the
+  two-phase hierarchical solve (:meth:`_compute_scale_hierarchical`).
 
 What the port leaves out, because it exists only for XLA compile time
 or TPU dispatch latency: the fused K-step dispatch, the background
 escalation compile (escalation here is a synchronous rebuild of the
 step at the wider factor), the two-steps-in-flight pipelining, the phase
 probes and the roofline model. Not ported yet (they raise
-``NotImplementedError``): similarity mode (``estimate_scale``), the
-banded and allpairs engines, and bases-axis sharding (``mesh``). See
-ROADMAP.md.
+``NotImplementedError``): the banded engine, the rowcap engine in
+similarity mode (the JAX package's XLA ``approx_max_k`` capture), and
+bases-axis sharding (``mesh``). See ROADMAP.md.
 
 Randomness comes from a ``torch.Generator`` reseeded per step from
 ``(random_seed, step index)``, so a resumed run draws the trials an
 uninterrupted run would have; the draws differ from the JAX package's
 threefry streams, so runs of the two packages agree statistically, not
-trial for trial.
+trial for trial. Similarity mode draws two more numbers per base (the
+dense capture's row rotation and the strided probe walk's rotation)
+after the base draws, so a rigid run's draws do not depend on it.
 """
 
 from __future__ import annotations
@@ -83,26 +89,36 @@ def _round_up(x: int, m: int) -> int:
 
 def resolve_bases_per_step(opts: Options, nq: int) -> int:
     """Effective RANSAC width per step (see Options.bases_per_step):
-    ``None`` gives 16 at nq > 1024, else 64 (the JAX package's rule)."""
+    ``None`` gives 16 at nq > 1024, else 64, and 4 in similarity mode
+    above nq = 2048, where each base's allpairs table holds nq^2 rows
+    (the JAX package's rule)."""
     b = opts.bases_per_step
     if b is None:
         b = 16 if nq > 1024 else 64
+        if opts.estimate_scale and nq > 2048:
+            b = 4
     return b
 
 
 def resolve_pair_engine(opts: Options, nq: int) -> str:
     """Effective pair-extraction engine (see Options.pair_engine): dense
     masking up to nq = 2048, the rowcap capture kernel up to 65536 (the
-    JAX package's thresholds on its kernel path). The banded and
-    allpairs engines and similarity mode are not ported and raise."""
-    if opts.estimate_scale:
-        raise _not_ported("estimate_scale (similarity mode)")
+    JAX package's thresholds on its kernel path). In similarity mode the
+    distance filter is off and every ordered pair is a candidate, so
+    "auto" gives dense up to 2048 and the allpairs implicit table above
+    (no capture at all). The banded engine, and rowcap in similarity
+    mode (the JAX package's XLA capture), are not ported and raise."""
     e = opts.pair_engine
     if e == "auto":
+        if opts.estimate_scale:
+            return "dense" if nq <= 2048 else "allpairs"
         e = ("dense" if nq <= 2048
              else ("rowcap" if nq <= 65536 else "banded"))
-    if e in ("banded", "allpairs"):
-        raise _not_ported(f"the {e!r} pair engine (nq = {nq})")
+    if e == "banded":
+        raise _not_ported(f"the 'banded' pair engine (nq = {nq})")
+    if e == "rowcap" and opts.estimate_scale:
+        raise _not_ported("the 'rowcap' pair engine in similarity mode "
+                          "(the JAX package's XLA approx_max_k capture)")
     return e
 
 
@@ -117,19 +133,40 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
 
     Returns (try_bases, (k_pairs, k_quads, n_cands)), where
     ``try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
-    q_bounds)`` runs one trial per base draw (see ops/select.py);
-    ``q_bounds`` are the Q tile bounds of the capture kernel's tile-pair
-    rejection (``rowcap.reject_bounds``), or None.
+    q_bounds, scale_draws)`` runs one trial per base draw (see
+    ops/select.py); ``q_bounds`` are the Q tile bounds of the capture
+    kernel's tile-pair rejection (``rowcap.reject_bounds``), or None;
+    ``scale_draws`` (similarity mode only) are each base's dense-capture
+    row rotation in [0, nq) and probe-walk rotation in [0, k_pairs),
+    two (B,) tensors.
     """
     if opts.bases_per_step is None:
         opts = opts.replace(bases_per_step=resolve_bases_per_step(opts, nq))
     engine = resolve_pair_engine(opts, nq)
-    # Capacity defaults (the JAX package's block, rigid engines only):
-    # pair counts scale ~ nq^2 * shell fraction; the rowcap engine
-    # captures 64 * nq, the dense one 16 * nq (widened under coarse
-    # search); quads ~8 * nq up to 8192.
-    if opts.max_pairs:
+    # Capacity defaults (the JAX package's block): pair counts scale ~
+    # nq^2 * shell fraction; the rowcap engine captures 64 * nq, the
+    # dense one 16 * nq (widened under coarse search); quads ~8 * nq up
+    # to 8192. Similarity mode has no distance band: every ordered pair
+    # is a hit, so the dense engine holds all nq (nq - 1) of them and
+    # the allpairs table is the full nq^2 enumeration.
+    if engine == "allpairs":
+        if not opts.estimate_scale:
+            raise ValueError("pair_engine='allpairs' requires "
+                             "estimate_scale=True")
+        if (opts.max_normal_difference > 0 or opts.max_color_distance > 0
+                or opts.max_translation_distance > 0):
+            # the implicit table marks every pair valid: there is no
+            # extraction stage to filter in
+            raise ValueError(
+                "pair_engine='allpairs' cannot apply pair-level filters "
+                "(max_normal_difference/max_color_distance/"
+                "max_translation_distance); reduce sample_size to "
+                "<= 2048 (dense engine) or disable the filters")
+        k_pairs = nq * nq
+    elif opts.max_pairs:
         k_pairs = opts.max_pairs
+    elif opts.estimate_scale and nq <= 2048:
+        k_pairs = _round_up(nq * (nq - 1), 128)
     else:
         per_nq = 64 if nq > 2048 else 16
         k_pairs = _round_up(
@@ -149,6 +186,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
         max_color_distance=opts.max_color_distance,
         max_translation_distance=opts.max_translation_distance,
         max_angle=opts.max_angle,
+        use_distance_filter=not opts.estimate_scale,
     )
     # Search-stage tolerances widen by search_delta_factor; verification
     # and refinement stay exact at delta (see Options).
@@ -167,19 +205,43 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
                   and engine == "dense"
                   and k_pairs * k_pairs * opts.bases_per_step <= (1 << 30))
 
+    est_scale = opts.estimate_scale
     if engine == "dense":
         join_row_cap = None
         # per-row capture when the per-row quota is small; the global
-        # row-major prefix otherwise
+        # row-major prefix otherwise, and always in similarity mode,
+        # whose capture is rotated by a per-base row offset (with every
+        # pair a hit, an unrotated prefix would keep the same low rows
+        # every trial)
         dense_fn = (extract_pairs_dense_rowcap
-                    if max(k_pairs // nq, 1) <= 64 else extract_pairs)
+                    if not est_scale and max(k_pairs // nq, 1) <= 64
+                    else extract_pairs)
 
         def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1,
-                         bounds):
+                         bounds, off):
             return (dense_fn(pos, normal, rgb, bpos, bnorm, brgb, 0, 1,
-                             eps_pairs, cfg, capacity=k_pairs),
+                             eps_pairs, cfg, capacity=k_pairs,
+                             row_offset=off),
                     dense_fn(pos, normal, rgb, bpos, bnorm, brgb, 2, 3,
-                             eps_pairs, cfg, capacity=k_pairs))
+                             eps_pairs, cfg, capacity=k_pairs,
+                             row_offset=off))
+    elif engine == "allpairs":
+        join_row_cap = nq
+        # nothing to extract: the join reads pair (t // nq, t % nq) from
+        # the slot index. The diagonal slots (t % (nq + 1) == 0) are
+        # invalid, so the valid count is the nq (nq - 1) hits
+        all_valid = None
+
+        def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1,
+                         bounds, off):
+            nonlocal all_valid
+            if all_valid is None or all_valid.device != pos.device:
+                all_valid = (torch.arange(nq * nq, device=pos.device)
+                             % (nq + 1)) != 0
+            cnt = torch.full((), nq * (nq - 1), dtype=torch.int64,
+                             device=pos.device)
+            z = torch.zeros_like(cnt)
+            return (None, all_valid, cnt, z), (None, all_valid, cnt, z)
     else:
         join_row_cap = opts.pair_row_cap or min(nq, max(32, _round_up(
             5 * k_pairs // (2 * nq), 32)))
@@ -189,7 +251,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
         join_row_cap = rowcap_kernel.slots_for(nq, join_row_cap)
 
         def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1,
-                         bounds):
+                         bounds, off):
             # edge 0 also emits the join hash of every captured slot
             return rowcap_kernel.extract_pairs_rowcap_both(
                 pos, bpos, eps_pairs, join_row_cap,
@@ -202,13 +264,17 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
                 tile_reject=opts.rowcap_tile_reject, bounds=bounds)
 
     qb_default = opts.join_q_budget or 8192
+    # allpairs: the nq^2-row table fills nearly every cell, so nearly
+    # every probe hits and a probe budget would only cut the probe
+    # sample: no budget there
     probe_budget = opts.join_probe_budget or (
+        None if engine == "allpairs" else
         (2 * min(qb_default, k_pairs if join_row_cap is None
                  else qb_default)
          * congruent.probe_window(dist_thr, cell_size) ** 3) // 8)
 
     def try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-                  q_rgb, q_bounds=None):
+                  q_rgb, q_bounds=None, scale_draws=None):
         ids, inv1, inv2, bvalid = select.select_base(p_pos, diam, *draws)
         base_pos = p_pos[ids]                            # (B, 4, 3)
         base_norm = p_norm[ids]
@@ -216,26 +282,31 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
         # angle between the two base segments (ref:super4pcs.cc:109-111)
         s1 = base_pos[:, 1] - base_pos[:, 0]
         s2 = base_pos[:, 3] - base_pos[:, 2]
-        s1 = s1 / torch.clamp(torch.linalg.vector_norm(s1, dim=-1),
-                              min=1e-30)[:, None]
-        s2 = s2 / torch.clamp(torch.linalg.vector_norm(s2, dim=-1),
-                              min=1e-30)[:, None]
-        cos_alpha = (s1 * s2).sum(-1)
+        n1 = torch.clamp(torch.linalg.vector_norm(s1, dim=-1), min=1e-30)
+        n2 = torch.clamp(torch.linalg.vector_norm(s2, dim=-1), min=1e-30)
+        cos_alpha = ((s1 / n1[:, None]) * (s2 / n2[:, None])).sum(-1)
+        if est_scale:
+            # the MULTISCALE ratio gate of the joins: d1 / d2 of the base
+            seg_ratio = n1 / n2
+            offs, q_rots = scale_draws
 
         quads_b, qvalid_b, counts_b = [], [], []
         zero = torch.zeros((), dtype=torch.int64, device=q_pos.device)
         for b in range(ids.shape[0]):
             ext = extract_both(q_pos, q_norm, q_rgb, base_pos[b],
                                base_norm[b], base_rgb[b], inv1[b],
-                               q_bounds)
+                               q_bounds, offs[b] if est_scale else None)
             (pairs1, v1, c1, d1), (pairs2, v2, c2, d2) = ext[0], ext[1]
             thash = ext[2] if len(ext) > 2 else None
+            gate = (dict(seg_ratio=seg_ratio[b],
+                         scale_band=geometry.SCALE_RATIO_DEV)
+                    if est_scale else {})
             if dense_join:
                 quads, qvalid, qcount = congruent.find_congruent_quads(
                     q_pos, pairs1, v1, pairs2, v2, inv1[b], inv2[b],
                     dist_thr, cos_alpha[b], cone_tol, k_quads,
                     direction_bins=opts.direction_bins,
-                    healpix_nside=opts.healpix_nside)
+                    healpix_nside=opts.healpix_nside, **gate)
                 qdropped = q_sub = zero
             else:
                 quads, qvalid, qcount, qdropped, q_sub = \
@@ -247,7 +318,13 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
                         direction_bins=opts.direction_bins,
                         healpix_nside=opts.healpix_nside,
                         cell_size=cell_size, row_cap=join_row_cap,
-                        table_hash=thash, probe_budget=probe_budget)
+                        table_hash=thash, probe_budget=probe_budget,
+                        # the strided probe walk only over the raw
+                        # allpairs enumeration, whose valid prefix holds
+                        # the pairs of a handful of first endpoints
+                        allpairs_cols=engine == "allpairs",
+                        q_uniform=engine == "allpairs",
+                        q_rot=q_rots[b] if est_scale else None, **gate)
             quads_b.append(quads)
             qvalid_b.append(qvalid)
             counts_b.append(torch.stack([c1, c2, qcount, qdropped,
@@ -259,7 +336,8 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
         centroid1 = base_pos[:, :3].mean(dim=1)          # ref:hpp:385
         centroid2 = cand[:, :, :3].mean(dim=2)           # ref:hpp:415-417
         transform, rms, tvalid = geometry.batched_rigid_fit(
-            base_pos, cand, centroid1, centroid2, max_angle_rad)
+            base_pos, cand, centroid1, centroid2, max_angle_rad,
+            estimate_scale=est_scale)
         cvalid = qvalid & tvalid & (rms >= 0) & (rms < rms_gate)
         # telemetry row per base: exact pre-cap pair counts, exact
         # pre-cap quad count, per-cell join drops, pairs dropped from
@@ -296,8 +374,15 @@ def build_step(opts: Options, nq: int, cone_tol: float):
              q_bounds=None):
         draws = select.draw_base_indices(gen, p_pos.shape[0], b,
                                          opts.n_triangle_trials)
+        # similarity mode's two rotations per base, drawn after the
+        # base draws so a rigid step's draws are the same without them
+        scale_draws = ((torch.randint(0, nq, (b,), generator=gen,
+                                      device=gen.device),
+                        torch.randint(0, k_pairs, (b,), generator=gen,
+                                      device=gen.device))
+                       if opts.estimate_scale else None)
         tb = try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-                       q_rgb, q_bounds)
+                       q_rgb, q_bounds, scale_draws)
         flat_t = tb["transform"].reshape(-1, 4, 4)
         flat_v = tb["cvalid"].reshape(-1)
         # compact the valid candidates before the (expensive) scoring
@@ -413,7 +498,8 @@ class Match4PCSBase:
         package or of the JAX package (converted by
         :func:`state_from_jax`) — the search continues from its trial
         counter and best-so-far (ref:match4pcsBase.hpp:236-258,
-        h:131-161).
+        h:131-161). A resumed run never takes the hierarchical scale
+        branch; a similarity state (linear part ``s R``) resumes as is.
         """
         visitor = visitor or DummyTransformVisitor()
         if len(P) == 0 or len(Q) == 0:
@@ -421,6 +507,11 @@ class Match4PCSBase:
             return RegistrationResult(
                 score=K_LARGE_NUMBER, transform=np.eye(4, dtype=np.float32),
                 transformed_q=None, n_trials=0, improved=False, stats={})
+        opts = self.options
+        if (opts.estimate_scale and opts.scale_hierarchical
+                and resume_state is None
+                and opts.sample_size > opts.scale_max_q):
+            return self._compute_scale_hierarchical(P, Q, visitor)
 
         with torch.no_grad():
             self._init(P, Q)
@@ -451,6 +542,82 @@ class Match4PCSBase:
             stats=dict(self._stats),
         )
 
+    def _compute_scale_hierarchical(self, P: PointCloud, Q: PointCloud,
+                                    visitor) -> RegistrationResult:
+        """Two-phase similarity registration above ``scale_max_q``
+        samples (see Options.scale_hierarchical):
+
+        1. coarse: a similarity solve at ``scale_max_q`` samples with
+           40% of the time budget gives the scale ``s``, the cube root
+           of |det| of its linear part;
+        2. fine: a rigid solve at full resolution on ``s * Q`` (the
+           distance-banded engines, the capture kernel above nq = 2048)
+           with the remaining budget.
+
+        Returns ``M = T_fine @ diag(s, s, s, 1)``; the coarse result
+        when either phase finds nothing better than the identity
+        (``stats["scale_hierarchical"]`` says which). The visitor sees
+        the coarse phase's progress in [0, 0.5] and the fine phase's in
+        [0.5, 1], in the original Q's frame when it asks for the global
+        transform.
+        """
+        opts = self.options
+        needs_global = visitor_needs_global(visitor)
+        coarse_opts = opts.replace(
+            sample_size=opts.scale_max_q,
+            max_time_seconds=max(opts.max_time_seconds * 0.4, 1.0))
+        t0 = time.perf_counter()
+
+        def coarse_visitor(fraction, lcp, transform):
+            visitor(fraction if fraction < 0 else 0.5 * min(fraction, 1.0),
+                    lcp, transform)
+
+        coarse_visitor.needs_global_transformation = lambda: needs_global
+        coarse = type(self)(coarse_opts, self.logger, device=self.device) \
+            .compute_transformation(P, Q, visitor=coarse_visitor)
+        coarse_s = time.perf_counter() - t0
+        if not coarse.improved:
+            coarse.stats["scale_hierarchical"] = "coarse_failed"
+            return coarse
+        # columns of s R all have norm s; the determinant's cube root
+        # does not depend on the rotation
+        s = float(abs(np.linalg.det(
+            np.asarray(coarse.transform)[:3, :3]))) ** (1.0 / 3.0)
+
+        q2 = PointCloud(pos=np.asarray(Q.pos, np.float32) * np.float32(s),
+                        normal=Q.normal, rgb=Q.rgb)
+        fine_opts = opts.replace(
+            estimate_scale=False,
+            max_time_seconds=max(opts.max_time_seconds - coarse_s, 1.0))
+        scale_mat = np.diag([s, s, s, 1.0]).astype(np.float32)
+
+        def fine_visitor(fraction, lcp, transform):
+            t = (np.asarray(transform) @ scale_mat if needs_global
+                 else transform)
+            visitor(fraction if fraction < 0
+                    else 0.5 + 0.5 * min(fraction, 1.0), lcp, t)
+
+        fine_visitor.needs_global_transformation = lambda: needs_global
+        fine = type(self)(fine_opts, self.logger, device=self.device) \
+            .compute_transformation(P, q2, visitor=fine_visitor)
+
+        stats = dict(fine.stats)
+        stats["hierarchical_scale"] = s
+        stats["coarse_search_seconds"] = coarse.stats.get(
+            "search_seconds", coarse_s)
+        stats["coarse_lcp"] = coarse.score
+        stats["coarse_trials"] = coarse.n_trials
+        if not fine.improved:
+            coarse.stats.update(stats)
+            coarse.stats["scale_hierarchical"] = "fine_failed"
+            return coarse
+        mat = np.asarray(fine.transform, np.float32) @ scale_mat
+        return RegistrationResult(
+            score=fine.score, transform=mat,
+            transformed_q=Q.transformed(mat),
+            n_trials=coarse.n_trials + fine.n_trials,
+            improved=True, stats=stats)
+
     # accessors mirroring getFirstSampled/getSecondSampled
     # (ref:match4pcsBase.h:88-94) — in original (uncentered) coordinates.
     def get_first_sampled(self) -> PointCloud:
@@ -465,8 +632,6 @@ class Match4PCSBase:
 
     def _init(self, P: PointCloud, Q: PointCloud):
         opts = self.options
-        if opts.estimate_scale:
-            raise _not_ported("estimate_scale (similarity mode)")
         rng = np.random.default_rng(opts.random_seed)
         self._q_original = Q
         self._b_eff = opts.bases_per_step
@@ -487,13 +652,26 @@ class Match4PCSBase:
         if len(Q) <= opts.sample_size:
             self.logger.error(
                 "(Q) More samples requested than available: use whole cloud")
+        q_target = opts.sample_size
+        scale_q_capped = 0
+        if opts.estimate_scale and q_target > opts.scale_max_q:
+            # similarity mode's pair space is nq^2: Q is cut to the
+            # ceiling (see Options.scale_max_q)
+            scale_q_capped = q_target - opts.scale_max_q
+            q_target = opts.scale_max_q
+            self.logger.error(
+                "estimate_scale: Q sample capped to ", q_target,
+                " (scale_max_q; see Options)")
         sampled_q = sampling.sample_for_matching(
-            Q, opts.delta, opts.sample_size, truncate=True, rng=rng)
+            Q, opts.delta, q_target, truncate=True, rng=rng)
         # spatially order the Q samples (kd median-split blocks): a
         # fixed permutation is semantically transparent, and it makes
         # the capture kernel's 256- and 512-point tiles compact, which
-        # its tile-pair rejection needs
-        sampled_q = sampled_q.take(sampling.kd_argsort(sampled_q.pos))
+        # its tile-pair rejection needs. Not in similarity mode, whose
+        # engines have no tile rejection: there the order would only
+        # reshuffle the trials (the JAX package's rule)
+        if not opts.estimate_scale:
+            sampled_q = sampled_q.take(sampling.kd_argsort(sampled_q.pos))
         self._sampled_p_world = sampled_p
         self._sampled_q_world = sampled_q
 
@@ -550,6 +728,8 @@ class Match4PCSBase:
             "cands_overflow": 0, "n_congruent": 0, "cell_dropped": 0,
             "q_sampled_out": 0, "n_pairs": 0,
         }
+        if scale_q_capped:
+            self._stats["scale_q_capped"] = scale_q_capped
 
         # best-so-far state (ref:match4pcsBase.h:131-161)
         self._best_rank = -np.inf       # coarse-search rank metric
@@ -766,7 +946,8 @@ class Match4PCSBase:
         refined = refine.refine_transform(
             cur_t, self._d_q_pos, self._d_p_pos, self.options.delta,
             iters=self.options.refine_iterations,
-            start_factor=self._search_sf)
+            start_factor=self._search_sf,
+            estimate_scale=self.options.estimate_scale)
         scores = lcp.lcp_scores(torch.stack([cur_t, refined]),
                                 self._d_q_pos, self._d_p_pos,
                                 self.options.delta)

@@ -6,14 +6,18 @@ PyTorch counterpart of ``super4pcs_tpu.ops.congruent`` (the reference's
 
 - :func:`find_congruent_quads`, the dense K1 x K2 join (the oracle, and
   the fast form at toy scale);
-- :func:`find_congruent_quads_grid`, the sorted spatial-hash join.
+- :func:`find_congruent_quads_grid`, the sorted spatial-hash join, over
+  extracted pairs, the capture kernel's row-capped tables, or the
+  implicit full-pair table of the scale-mode "allpairs" engine.
 
 Both keep the JAX package's squared-vs-squared join threshold
 (``d^2 <= threshold^2``; the reference compares a squared distance with
 an unsquared radius). In Super4PCS mode both apply a direction filter:
 the exact cone mask ``|dir1 . dir2 - cos(alpha)| <= tol`` (the default)
 or the HEALPix bins of the reference's ``IndexedNormalHealSet``
-(:func:`healpix_circle_pixels`).
+(:func:`healpix_circle_pixels`). In similarity mode both also apply the
+reference's MULTISCALE ratio gate (``scale_band``, see
+:func:`find_congruent_quads`).
 """
 
 from __future__ import annotations
@@ -108,13 +112,22 @@ def find_congruent_quads(pos, pairs1, valid1, pairs2, valid2,
                          invariant1, invariant2, distance_threshold,
                          base_cos_alpha, cone_cos_tolerance,
                          capacity: int, direction_bins: str = "cone",
-                         healpix_nside: int = 4):
+                         healpix_nside: int = 4, seg_ratio=None,
+                         scale_band: float = -1.0):
     """Dense join of the two pair sets on invariant-point proximity.
 
     ``direction_bins`` selects the Super4PCS direction filter: "cone"
     (exact mask, the default) or "healpix" (rasterized ring-scheme bins,
     see :func:`healpix_circle_pixels`). Ignored when
     ``cone_cos_tolerance < 0`` (4PCS mode).
+
+    ``scale_band`` >= 0 turns on similarity mode's scale-consistency
+    mask (the reference's MULTISCALE ratio gate, ref:match4pcsBase.cc:
+    390-414, applied there at fit time only): a candidate passes iff
+    ``|seg_ratio * len2 / len1 - 1| <= scale_band``, with ``seg_ratio``
+    the base's segment-length ratio d1 / d2 and len1, len2 the lengths
+    of its two pairs. Masking here keeps the scale-inconsistent
+    collisions, which the fit would reject, out of ``capacity``.
 
     Returns (quads (capacity, 4) int64 = (a, b, c, d), valid
     (capacity,), count). Quad layout matches ref:super4pcs.cc:172-173:
@@ -126,6 +139,12 @@ def find_congruent_quads(pos, pairs1, valid1, pairs2, valid2,
     d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
     mask = d2 <= distance_threshold * distance_threshold
     mask &= valid1[:, None] & valid2[None, :]
+    if scale_band >= 0:
+        len1 = _norm3(pos[pairs1[:, 1]] - pos[pairs1[:, 0]])      # (K1,)
+        len2 = _norm3(pos[pairs2[:, 1]] - pos[pairs2[:, 0]])      # (K2,)
+        rr = seg_ratio * len2[None, :] / torch.clamp(len1[:, None],
+                                                     min=1e-30)
+        mask &= (rr - 1.0).abs() <= scale_band
     if cone_cos_tolerance >= 0:
         dir1 = pair_directions(pos, pairs1)
         dir2 = pair_directions(pos, pairs2)
@@ -178,6 +197,7 @@ def find_congruent_quads_grid(
     row_cap: int | None = None,
     probe_budget: int | None = None, cell_size: float | None = None,
     table_hash=None, allpairs_cols: bool = False, q_uniform: bool = False,
+    q_rot=None, seg_ratio=None, scale_band: float = -1.0,
 ):
     """Output-sensitive congruent-set join via a sorted spatial hash.
 
@@ -206,18 +226,30 @@ def find_congruent_quads_grid(
     stop short in a cell denser than 2^rounds, so there the port may
     find a superset of the JAX package's candidates.
 
-    ``allpairs_cols`` and ``q_uniform`` (the JAX package's scale-mode
-    implicit table and strided probe walk) are not ported and raise.
+    ``allpairs_cols`` (needs ``row_cap``) declares the implicit full
+    ordered-pair table of the scale-mode "allpairs" engine: table row
+    ``t`` is the pair ``(t // row_cap, t % row_cap)``, ``pairs1`` and
+    ``pairs2`` may be None, and the hash stage reads ``pos`` by
+    broadcast, with no table-sized gather.
+
+    ``q_uniform`` replaces the first-``qb``-valid-slots probe selection
+    by a strided walk over the whole second-side buffer, rotated by
+    ``q_rot`` (an int or 0-d tensor drawn per trial); the stride is
+    ``k2 // qb`` raised to the next value coprime with ``k2``, so the
+    walk visits ``qb`` distinct slots spread over every first endpoint.
+    The slot arithmetic is int64 (the JAX package's is int32, equal
+    wherever that does not overflow).
+
+    ``scale_band`` >= 0 applies the scale-consistency mask of
+    :func:`find_congruent_quads` to each candidate in the validation.
 
     Returns (quads (capacity, 4) int64, valid, count, dropped,
     q_subsampled): ``dropped`` counts per-cell cap and probe-budget
     drops, ``q_subsampled`` the second-side pairs beyond the budget (in
     probe units).
     """
-    if allpairs_cols or q_uniform:
-        raise NotImplementedError(
-            "allpairs_cols / q_uniform (scale mode) are not ported to "
-            "super4pcs_tpu_torch (see ROADMAP)")
+    if allpairs_cols and row_cap is None:
+        raise ValueError("allpairs_cols requires row_cap")
     dev = pos.device
     r = distance_threshold
     cell = cell_size if cell_size is not None else 2.0 * r
@@ -231,7 +263,9 @@ def find_congruent_quads_grid(
     n = pos.shape[0]
     L = cell_candidates
 
-    if pairs1.ndim == 1:
+    if allpairs_cols:
+        cols1 = rows1 = None
+    elif pairs1.ndim == 1:
         if row_cap is None:
             raise ValueError("1-D pairs require the row_cap layout")
         cols1 = pairs1
@@ -244,6 +278,9 @@ def find_congruent_quads_grid(
         if rows1 is None:
             return torch.clamp(t // row_cap, max=n - 1)
         return rows1[t]
+
+    def table_cols(t):
+        return t % row_cap if allpairs_cols else cols1[t]
 
     def e1_components(rows, cols):
         """Invariant-point components of table pairs (rows, cols):
@@ -259,15 +296,43 @@ def find_congruent_quads_grid(
         if row_cap is None:
             raise ValueError("table_hash requires the row_cap layout")
         h1 = table_hash.long()
+    elif allpairs_cols:
+        # the implicit table as an (n_rows, row_cap) grid: endpoint a
+        # varies down the rows, b across them (the JAX package's
+        # broadcast columns, same arithmetic per element)
+        n_rows = k1 // row_cap
+        rows = torch.clamp(torch.arange(n_rows, device=dev), max=n - 1)
+        cols = torch.clamp(torch.arange(row_cap, device=dev), max=n - 1)
+        e1c = []
+        for c in range(3):
+            ac = pos[rows, c][:, None]
+            bc = pos[cols, c][None, :]
+            e1c.append((ac + invariant1 * (bc - ac)).reshape(-1))
+        h1 = torch.where(valid1, cell_hash_of(e1c, cell_t).long(), SENT)
+        del e1c
     else:
         e1c = [e for (_, _, e) in e1_components(
             table_rows(torch.arange(k1, device=dev)), cols1)]
         h1 = torch.where(valid1, cell_hash_of(e1c, cell_t).long(), SENT)
 
-    # Q-side budget: the first qb valid second-side pairs
+    # Q-side budget: the first qb valid second-side pairs, or (q_uniform)
+    # a rotated walk with a stride coprime with k2
     qb = min(q_budget or 8192, k2)
-    sel2, sel2_valid, n2 = masked_indices(valid2, qb)
-    if pairs2.ndim == 1:
+    if q_uniform:
+        stride = max(k2 // qb, 1)
+        while math.gcd(stride, k2) != 1:
+            stride += 1
+        rot = (0 if q_rot is None
+               else torch.as_tensor(q_rot, device=dev).long())
+        sel2 = torch.remainder(
+            torch.arange(qb, device=dev) * stride + rot, k2)
+        sel2_valid = valid2[sel2]
+        n2 = valid2.sum()
+    else:
+        sel2, sel2_valid, n2 = masked_indices(valid2, qb)
+    if allpairs_cols and pairs2 is None:
+        pairs2b = torch.stack([sel2 // row_cap, sel2 % row_cap], dim=-1)
+    elif pairs2.ndim == 1:
         pairs2b = torch.stack([sel2 // row_cap, pairs2[sel2]], dim=-1)
     else:
         pairs2b = pairs2[sel2]                                 # (QB, 2)
@@ -296,7 +361,7 @@ def find_congruent_quads_grid(
     hi_all = torch.clamp(torch.searchsorted(sk, _wrap32(groupq + 2)),
                          max=slo)
 
-    pvalid = sel2_valid.repeat_interleave(n_probe)
+    pvalid = sel2_valid[:, None].expand(qb, n_probe).reshape(-1)
     counts = torch.where(pvalid, torch.clamp(hi_all - lo_all, min=0), 0)
     hi_c = torch.where(pvalid, hi_all, lo_all)
     lo_c = lo_all
@@ -321,7 +386,7 @@ def find_congruent_quads_grid(
     slot = torch.clamp(slot, 0, k1 - 1)
     orid = torch.clamp(order[slot], max=k1 - 1)               # (L, PB)
     trow = table_rows(orid)
-    tcol = cols1[orid]
+    tcol = table_cols(orid)
 
     # exact validation: invariant-point distance, then the direction
     # filter
@@ -331,12 +396,16 @@ def find_congruent_quads_grid(
     d2 = (dd[0] * dd[0] + dd[1] * dd[1]) + dd[2] * dd[2]
     mask = in_cell & (d2 <= r * r)
 
-    if cone_cos_tolerance >= 0:
+    if cone_cos_tolerance >= 0 or scale_band >= 0:
         d2v = b2 - a2
         dxc = [bc - ac for (ac, bc, _) in g]                  # (L, PB) x3
         n1g = torch.clamp(torch.sqrt(
             (dxc[0] * dxc[0] + dxc[1] * dxc[1]) + dxc[2] * dxc[2]),
             min=1e-30)
+    if scale_band >= 0:
+        rr = seg_ratio * _norm3(d2v)[qi][None, :] / n1g        # (L, PB)
+        mask &= (rr - 1.0).abs() <= scale_band
+    if cone_cos_tolerance >= 0:
         dir2 = d2v / torch.clamp(_norm3(d2v), min=1e-30)[:, None]
         if direction_bins == "healpix":
             circ = healpix_circle_pixels(dir2, base_cos_alpha,
@@ -353,7 +422,8 @@ def find_congruent_quads_grid(
     sel, valid, count = masked_indices_2d(mask, capacity)
     orid_sel = orid.reshape(-1)[sel]
     if rows1 is None:
-        q1 = torch.stack([orid_sel // row_cap, cols1[orid_sel]], dim=-1)
+        q1 = torch.stack([orid_sel // row_cap, table_cols(orid_sel)],
+                         dim=-1)
     else:
         q1 = pairs1[orid_sel]
     q2 = pairs2b[qi[sel % qi.shape[0]]]

@@ -17,6 +17,12 @@ from ..options import K_LARGE_NUMBER
 
 _K_SMALL = 1e-4   # kSmallNumber, ref:match4pcsBase.cc:70
 
+#: Similarity-mode scale-consistency gate: the two segment-length ratios
+#: of a candidate quad may deviate at most this much from each other
+#: (ref:match4pcsBase.cc:402 ``ratioDev > 0.1 -> reject``). The
+#: congruent joins apply the same gate before their capacity compaction.
+SCALE_RATIO_DEV = 0.1
+
 
 def clean_invalid_normals(normal: np.ndarray) -> tuple[np.ndarray, int]:
     """Zero out degenerate normals, normalize the rest.
@@ -150,15 +156,18 @@ def _cross(a, b):
 
 
 def batched_rigid_fit(ref_quad, cand_quads, centroid1, centroid2,
-                      max_angle_rad: float):
+                      max_angle_rad: float, estimate_scale: bool = False):
     """Fit rigid transforms aligning each candidate quad onto its base.
 
-    Batched ``ComputeRigidTransformation`` (ref:match4pcsBase.cc:365-500,
-    computeScale=false path), closed form with no SVD: orthonormal
-    frames from the first three points of each quad, R = Rp^T Rq, the
-    same orthogonality / max-angle gates, and the same 3-point RMS
-    divided by 4. The JAX package's similarity (``estimate_scale``)
-    branch is not ported.
+    Batched ``ComputeRigidTransformation`` (ref:match4pcsBase.cc:365-500),
+    closed form with no SVD: orthonormal frames from the first three
+    points of each quad, R = Rp^T Rq, the same orthogonality / max-angle
+    gates, and the same 3-point RMS divided by 4. With
+    ``estimate_scale`` (the reference's MULTISCALE path, ref:cc:390-414)
+    each candidate is scaled by the mean of its two segment-length
+    ratios before the frames are built, rejected when the ratios deviate
+    more than ``SCALE_RATIO_DEV`` from each other, and its linear part
+    is ``scale * R``.
 
     Args:
       ref_quad:   (B, 4, 3) base points (centered-P frame).
@@ -171,6 +180,21 @@ def batched_rigid_fit(ref_quad, cand_quads, centroid1, centroid2,
       candidates get rms = kLargeNumber.
     """
     eps = 1e-6  # kSmallNumber, ref:cc:377
+
+    if estimate_scale:
+        def seg_len(a, b):
+            d = a - b
+            return torch.sqrt(_dot(d, d))
+
+        r1 = seg_len(ref_quad[:, 1], ref_quad[:, 0])[:, None] / torch.clamp(
+            seg_len(cand_quads[:, :, 1], cand_quads[:, :, 0]), min=1e-30)
+        r2 = seg_len(ref_quad[:, 3], ref_quad[:, 2])[:, None] / torch.clamp(
+            seg_len(cand_quads[:, :, 3], cand_quads[:, :, 2]), min=1e-30)
+        scale_ok = ((r1 / torch.clamp(r2, min=1e-30) - 1.0).abs()
+                    <= SCALE_RATIO_DEV)
+        scale = 0.5 * (r1 + r2)                             # (B, C)
+        cand_quads = cand_quads * scale[..., None, None]
+        centroid2 = centroid2 * scale[..., None]
 
     def frame(p0, p1, p2):
         # exact 1/sqrt: the (R R)_ii - 1 <= 1e-6 gate below needs it
@@ -223,8 +247,13 @@ def batched_rigid_fit(ref_quad, cand_quads, centroid1, centroid2,
     transform[..., :3, :3] = rotation
     transform[..., :3, 3] = t
     transform[..., 3, 3] = 1.0
-
     valid = ok_p[:, None] & ok_q & ortho_ok & angle_ok
+
+    if estimate_scale:
+        # linear part scale * R; the translation already used the
+        # scaled centroid (transform = T(c1) R S T(-c2), ref:cc:491-497)
+        transform[..., :3, :3] *= scale[..., None, None]
+        valid &= scale_ok
     rms = torch.where(valid, rms, torch.full_like(rms, K_LARGE_NUMBER))
     return transform, rms, valid
 

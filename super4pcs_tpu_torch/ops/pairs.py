@@ -154,11 +154,28 @@ def _edge_mask(pos, normal, rgb, base_pos, base_norm, base_rgb,
         pair_distance_epsilon, cfg)
 
 
+def _rotate_rows(emit, row_offset):
+    """``emit`` with its rows rolled so that row ``row_offset`` comes
+    first (``jnp.roll(emit, -off, axis=0)``), and the offset reduced
+    mod n. The offset may be a device tensor: the roll is a gather, so
+    nothing waits for its value."""
+    n = emit.shape[0]
+    off = torch.remainder(torch.as_tensor(row_offset, device=emit.device),
+                          n)
+    return emit[torch.remainder(torch.arange(n, device=emit.device) + off,
+                                n)], off
+
+
 def extract_pairs(pos, normal, rgb, base_pos, base_norm, base_rgb,
                   edge0: int, edge1: int, pair_distance_epsilon,
-                  cfg: PairFilterConfig, capacity: int):
+                  cfg: PairFilterConfig, capacity: int, row_offset=None):
     """Ordered pairs matching one base edge, compacted in row-major
     order to a ``capacity`` buffer.
+
+    ``row_offset`` (an int or 0-d tensor) rotates the capture: hits are
+    kept in row-major order starting at that row, wrapping. It matters
+    only under overflow, where the kept prefix would otherwise be the
+    same low rows every trial (scale mode, where every pair is a hit).
 
     Returns (pairs (capacity, 2) int64, valid (capacity,), count,
     dropped): ``count`` is the exact number of pairs pre-cap and
@@ -167,19 +184,27 @@ def extract_pairs(pos, normal, rgb, base_pos, base_norm, base_rgb,
     n = pos.shape[0]
     emit = _edge_mask(pos, normal, rgb, base_pos, base_norm, base_rgb,
                       edge0, edge1, pair_distance_epsilon, cfg)
+    if row_offset is not None:
+        emit, off = _rotate_rows(emit, row_offset)
     flat_idx, valid, count = masked_indices(emit.reshape(-1), capacity)
-    pairs = torch.stack([flat_idx // n, flat_idx % n], dim=-1)
+    u = flat_idx // n
+    if row_offset is not None:
+        u = torch.remainder(u + off, n)
+    pairs = torch.stack([u, flat_idx % n], dim=-1)
     return pairs, valid, count, torch.clamp(count - capacity, min=0)
 
 
 def extract_pairs_dense_rowcap(pos, normal, rgb, base_pos, base_norm,
                                base_rgb, edge0: int, edge1: int,
                                pair_distance_epsilon,
-                               cfg: PairFilterConfig, capacity: int):
+                               cfg: PairFilterConfig, capacity: int,
+                               row_offset=None):
     """Dense-mask extraction with a per-row capture: each row keeps its
     first ``row_cap = capacity // n`` hits in column order (overflow
     drops the tail of each row — row-fair, like the reference's
     per-point pair vectors, ref:pairCreationFunctor.h:120-129).
+    ``row_offset`` rotates the first-point axis as in
+    :func:`extract_pairs`.
 
     Returns (pairs (n * row_cap, 2) int64, valid, count, dropped) —
     slot ``s`` belongs to row ``s // row_cap``; ``count`` is the exact
@@ -189,6 +214,8 @@ def extract_pairs_dense_rowcap(pos, normal, rgb, base_pos, base_norm,
     row_cap = max(capacity // n, 1)
     emit = _edge_mask(pos, normal, rgb, base_pos, base_norm, base_rgb,
                       edge0, edge1, pair_distance_epsilon, cfg)
+    if row_offset is not None:
+        emit, off = _rotate_rows(emit, row_offset)
     col = torch.arange(n, device=pos.device)
     key = torch.where(emit, col, n)
     k = min(row_cap, n)
@@ -199,6 +226,8 @@ def extract_pairs_dense_rowcap(pos, normal, rgb, base_pos, base_norm,
     cols = cols.reshape(-1)
     valid = cols >= 0
     u = torch.arange(n * row_cap, device=pos.device) // row_cap
+    if row_offset is not None:
+        u = torch.remainder(u + off, n)
     pairs = torch.stack([torch.where(valid, u, 0), cols.clamp(min=0)],
                         dim=-1)
     count = emit.sum()

@@ -1,4 +1,4 @@
-"""Rigid-transform refinement (trimmed point-to-point ICP).
+"""Rigid/similarity-transform refinement (trimmed point-to-point ICP).
 
 PyTorch counterpart of ``super4pcs_tpu.ops.refine``: a quality stage
 the reference does not have. A few trimmed-ICP iterations on the sampled
@@ -6,8 +6,8 @@ clouds close the gap between RANSAC's 4-point fit and the achievable
 LCP; the caller keeps the refined pose only when its LCP does not drop.
 Nearest neighbours are found with the |a|^2 + |b|^2 - 2ab expansion
 (argmin only) and their distance recomputed exactly; the weighted
-Kabsch fit is a 3x3 SVD with the reflection repaired. The JAX package's
-similarity (Umeyama) branch is not ported.
+Kabsch fit is a 3x3 SVD with the reflection repaired; in similarity
+mode it is the Umeyama fit on the same SVD.
 """
 
 from __future__ import annotations
@@ -36,11 +36,16 @@ def _nearest(tq, p_pos, p_block: int = 4096):
 
 
 def refine_transform(transform, q_pos, p_pos, delta, iters: int = 8,
-                     start_factor: float = 1.0):
+                     start_factor: float = 1.0,
+                     estimate_scale: bool = False):
     """Trimmed ICP from ``transform`` (centered-Q -> centered-P frame).
 
     Correspondences within the trim radius get weight 1; the weighted
-    Kabsch fit updates the pose each iteration. The radius anneals
+    Kabsch fit updates the pose each iteration. With ``estimate_scale``
+    the fit is Umeyama's similarity instead: scale
+    ``c = trace(diag(1, 1, d) S) / sum w ||q - mu_q||^2`` from the same
+    SVD, re-estimated from the original ``q_pos`` each iteration (1
+    where the weighted variance is <= 1e-20). The radius anneals
     geometrically from ``2 * delta * start_factor`` down to
     ``2 * delta`` (constant at ``start_factor`` 1.0).
 
@@ -69,11 +74,18 @@ def refine_transform(transform, q_pos, p_pos, delta, iters: int = 8,
         qc = (q_pos - mu_q) * w[:, None]
         pc = tgt - mu_p
         h = qc.T @ pc                                  # (3, 3)
-        u, _, vt = torch.linalg.svd(h)
+        u, s, vt = torch.linalg.svd(h)
         d = torch.sign(torch.linalg.det(vt.T @ u.T))
         diag = eye.clone()
         diag[2, 2] = d
         rot = vt.T @ diag @ u.T
+        if estimate_scale:
+            var_q = (qc * (q_pos - mu_q)).sum()
+            c = torch.where(var_q > 1e-20,
+                            (s[0] + s[1] + d * s[2])
+                            / torch.clamp(var_q, min=1e-20),
+                            torch.ones_like(var_q))
+            rot = c * rot
         t = mu_p - rot @ mu_q
         mat = torch.eye(4, dtype=torch.float32, device=dev)
         mat[:3, :3] = rot

@@ -23,8 +23,8 @@ ported; see ROADMAP.md):
   multi-step dispatch and bases-axis sharding are not ported.
 - ``phase_timing``: the telescoped phase probes are not ported.
 
-``estimate_scale=True`` and ``pair_engine`` "banded"/"allpairs" raise
-``NotImplementedError`` in the matcher.
+``pair_engine="banded"``, and "rowcap" with ``estimate_scale=True``,
+raise ``NotImplementedError`` in the matcher.
 """
 
 from __future__ import annotations
@@ -61,8 +61,9 @@ class Options:
     #: there too): the pair distance filter is disabled and the fit
     #: estimates a per-candidate scale from the two segment ratios,
     #: rejecting candidates whose ratios deviate > 10%
-    #: (ref:match4pcsBase.cc:390-414, 4pcs.cc:141-143). Expect far more
-    #: pairs — raise max_pairs accordingly.
+    #: (ref:match4pcsBase.cc:390-414, 4pcs.cc:141-143); the refine fits
+    #: a similarity (Umeyama). See scale_max_q, scale_hierarchical and
+    #: pair_engine for the engines it runs.
     estimate_scale: bool = False
 
     # validated pair, set via configure_overlap (ref:shared4pcs.h:173-190)
@@ -130,16 +131,26 @@ class Options:
     #: volume over 8). Probes beyond the budget drop their cell, counted
     #: in stats["cell_dropped"].
     join_probe_budget: Optional[int] = None
-    #: Scale-mode (estimate_scale) Q-sample ceiling of the JAX package.
-    #: Scale mode is not ported; validated field only.
+    #: Similarity-mode (estimate_scale) Q-sample ceiling. With the
+    #: distance filter off every ordered pair is a candidate, so the
+    #: allpairs engine's table holds nq^2 rows per base: this bounds
+    #: that cost. With ``scale_hierarchical`` off, Q samples beyond it
+    #: are cut (logged; counted in stats["scale_q_capped"]).
     scale_max_q: int = 2048
-    #: Two-phase (coarse similarity, then fine rigid) scale mode of the
-    #: JAX package. Scale mode is not ported; validated field only.
+    #: Two-phase similarity mode: when estimate_scale is on and
+    #: sample_size exceeds scale_max_q, a coarse similarity solve at
+    #: scale_max_q samples gives the scale s, then a rigid solve on
+    #: s * Q at full width (the rigid engines, the capture kernel above
+    #: nq = 2048) gives the pose; the result is T_fine @ diag(s, s, s,
+    #: 1). False cuts Q to the ceiling instead.
     scale_hierarchical: bool = True
     #: Pair-extraction engine: "auto" picks dense masking (nq <= 2048)
-    #: or the rowcap capture kernel (nq <= 65536). "dense" and "rowcap"
-    #: pin one. "banded" (the JAX package's engine above nq = 65536) and
-    #: "allpairs" (its scale-mode engine) are not ported and raise.
+    #: or the rowcap capture kernel (nq <= 65536); in similarity mode
+    #: dense (nq <= 2048) or "allpairs", the implicit table of every
+    #: ordered pair (no capture; needs estimate_scale). "dense",
+    #: "rowcap" and "allpairs" pin one. "banded" (the JAX package's
+    #: engine above nq = 65536), and "rowcap" in similarity mode (the JAX
+    #: package's XLA capture), are not ported and raise.
     pair_engine: str = "auto"
     #: Occupied-cell budget of the banded engine (not ported).
     band_cell_budget: int = 8192

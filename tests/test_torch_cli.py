@@ -21,6 +21,8 @@ from super4pcs_tpu_torch import io as tio
 from super4pcs_tpu_torch.cloud import PointCloud
 from super4pcs_tpu_torch.sequence import reference_pose_diff
 
+from _torch_threads import one_torch_thread_per_worker  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -181,14 +183,29 @@ def test_end_to_end_on_cpu(clouds, tmp_path, capsys, algo):
 
 
 def test_estimate_scale_exits_minus_two(clouds, tmp_path, capsys):
-    """Similarity mode is not ported: the matcher's NotImplementedError
-    goes through the catch-all."""
-    p1, p2, _, _ = clouds
-    rc = tcli.main(["s", "-i", p1, p2, "-m", str(tmp_path / "m.txt"),
-                    "--tpu-opts", "estimate_scale=true"], device="cpu")
-    assert rc == -2
-    assert "estimate_scale" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "m.txt")
+    """``--tpu-opts estimate_scale=true`` runs similarity mode (the name
+    is kept from when it exited -2): on Q shrunk by 1.25 the run exits 0
+    and the Polyworks matrix carries the scale, its linear part s R
+    within the pose gates once s is divided out."""
+    p1, _, pos, gt = clouds
+    s = 1.25
+    q = (pos - gt[:3, 3]) @ gt[:3, :3] / s
+    p2 = str(tmp_path / "q_scaled.ply")
+    tio.write_ply(p2, PointCloud(pos=q.astype(np.float32)))
+    mat = tmp_path / "m.txt"
+    rc = tcli.main(["s", "-i", p1, p2, "-o", "0.9", "-d", "0.05", "-n",
+                    "100", "-t", "600", "-m", str(mat), "--tpu-opts",
+                    "estimate_scale=true,random_seed=21,bases_per_step=8,"
+                    "max_pairs=4096,max_quads=2048,max_candidates=8192"],
+                   device="cpu")
+    assert rc == 0
+    assert "Score: " in capsys.readouterr().out
+    m = _read_polyworks(mat)
+    est = np.linalg.norm(m[:3, :3], axis=0).mean()
+    assert abs(est - s) < 0.05, est
+    m[:3, :3] /= est
+    rot_diff, tr_diff = reference_pose_diff(m, gt)
+    assert rot_diff <= 0.2 and tr_diff <= 0.1
 
 
 def test_default_device_without_a_card_fails_loudly(clouds, tmp_path,

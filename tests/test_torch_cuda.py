@@ -12,7 +12,7 @@ import torch
 import super4pcs_tpu_torch as s4t
 from super4pcs_tpu_torch.kernels import lcp as k1
 from super4pcs_tpu_torch.kernels import rowcap as k2
-from super4pcs_tpu_torch.ops import sampling
+from super4pcs_tpu_torch.ops import masking, sampling
 
 from _within_cases import case as within_case
 
@@ -227,6 +227,25 @@ def test_min_sq_dists_bit_identical_to_plain(dev, m, np_):
     assert k1.lcp_min_d2.launches == before + 1
 
 
+@pytest.mark.parametrize("n,cap,frac", [(0, 8, 0.5), (1000, 64, 0.01),
+                                        (1000, 64, 0.5),
+                                        (1 << 20, 4096, 0.003)])
+def test_masked_indices_on_the_card_equal_cpu(dev, n, cap, frac):
+    """The sync-free compaction every join runs, on the card, against
+    the same function on the CPU (which tests/test_torch_ops.py holds
+    against the JAX package): flat and row-major 2-D forms."""
+    rng = np.random.default_rng(n + cap)
+    mask = torch.as_tensor(rng.uniform(size=n) < frac)
+    mask2 = torch.as_tensor(rng.uniform(size=(n // 40 + 1, 40)) < frac)
+    for fn, m in ((masking.masked_indices, mask),
+                  (masking.masked_indices_2d, mask2)):
+        ref = fn(m, cap)
+        got = fn(m.to(dev), cap)
+        for r, g in zip(ref, got):
+            assert g.device.type == "cuda"
+            assert torch.equal(g.cpu(), r)
+
+
 def test_register_recipe_on_the_card(dev):
     """The 500-point known-pose recipe through register on the card."""
     rng = np.random.default_rng(11)
@@ -275,3 +294,36 @@ def test_cli_on_the_card(dev, tmp_path, capsys):
     m = np.array([[float(x) for x in r.split()] for r in rows])
     moved = source @ m[:3, :3].T + m[:3, 3]
     assert np.median(np.linalg.norm(moved - target, axis=1)) < 0.05
+
+
+def test_allpairs_scale_registration_on_the_card(dev):
+    """Similarity mode through the allpairs engine on the card (the
+    allpairs test fixture of tests/test_matcher.py:767-801 on a fixed
+    pose): the engine resolves, the pruned verify launches, no capture
+    kernel does, and the JAX test's gates hold."""
+    rng = np.random.default_rng(42)
+    v = rng.normal(size=(96, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    pos = (v * bump[:, None]).astype(np.float32)
+    ang, s = 0.8, 1.4
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    q = ((pos @ R.T + np.float32([0.1, -0.05, 0.2])) / s).astype(np.float32)
+    opts = s4t.Options(delta=0.04, sample_size=96, max_time_seconds=60,
+                       bases_per_step=8, estimate_scale=True,
+                       pair_engine="allpairs", max_quads=2048,
+                       max_candidates=8192,
+                       random_seed=21).configure_overlap(0.8, 0.9)
+    assert s4t.matcher.resolve_pair_engine(opts, 96) == "allpairs"
+    before = (k1.lcp_min_d2_within.launches, k2.rowcap_capture.launches)
+    res = s4t.MatchSuper4PCS(opts, device=dev).compute_transformation(
+        s4t.PointCloud(pos), s4t.PointCloud(q))
+    assert k1.lcp_min_d2_within.launches > before[0]
+    assert k2.rowcap_capture.launches == before[1]
+    assert res.score > 0.8
+    est = np.linalg.norm(res.transform[:3, :3], axis=0).mean()
+    assert abs(est - s) < 0.05
+    moved = q @ res.transform[:3, :3].T + res.transform[:3, 3]
+    assert np.median(np.linalg.norm(moved - pos, axis=1)) < 0.04

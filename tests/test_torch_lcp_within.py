@@ -117,3 +117,20 @@ def test_within_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
                              meta, eps)
     with pytest.raises(ValueError):
         k1.lcp_min_d2_within(tr, q[:, :2], p, eps)
+
+
+def test_walk_on_a_large_sparse_grid_meets_the_contract():
+    """P spread over 1000 cells per axis, most of them empty: the plain
+    walk meets the brute-force contract and finds hits."""
+    rng = np.random.default_rng(3)
+    p = _t(rng.uniform(-50, 50, (2000, 3)))
+    q = p[::10] + _t(rng.normal(scale=0.03, size=(200, 3)))
+    tr = _t(np.tile(np.eye(4, dtype=np.float32), (3, 1, 1)))
+    tr[1, :3, 3] = 0.02
+    tr[2, :3, 3] = 5.0
+    eps = 0.05
+    grid = k1.grid_index(p, eps)[2]
+    assert int(grid[4] * grid[5] * grid[6]) > 1 << 20
+    got = k1.lcp_min_d2_within_plain(tr, q, p, eps)
+    assert torch.equal(got, _contract(tr, q, p, eps))
+    assert bool(torch.isfinite(got[0]).any())

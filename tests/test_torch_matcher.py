@@ -198,12 +198,16 @@ def test_resume_from_jax_state(recipe):
 
 def test_not_ported_paths_raise():
     pts = s4t.PointCloud(_bumpy(np.random.default_rng(0), 100))
-    for kw in (dict(estimate_scale=True), dict(pair_engine="banded")):
-        with pytest.raises(NotImplementedError):
-            s4t.MatchSuper4PCS(s4t.Options(delta=0.05, **kw),
-                               device="cpu").compute_transformation(pts, pts)
+    with pytest.raises(NotImplementedError):
+        s4t.MatchSuper4PCS(s4t.Options(delta=0.05, pair_engine="banded"),
+                           device="cpu").compute_transformation(pts, pts)
     with pytest.raises(NotImplementedError):
         s4t.MatchSuper4PCS(s4t.Options(), device="cpu", mesh=object())
+    # similarity mode is ported (tests/test_torch_scale.py): a self-match
+    # starts at LCP 1 and returns at once
+    same = s4t.MatchSuper4PCS(s4t.Options(delta=0.05, estimate_scale=True),
+                              device="cpu").compute_transformation(pts, pts)
+    assert same.score == 1.0 and same.n_trials == 0
     # HEALPix bins are ported: the step builds on both engines
     for nq in (500, 4096):
         step, caps = tmatcher.build_step(

@@ -403,9 +403,13 @@ def test_join_helpers(rng):
     args = (_t(pos), torch.as_tensor(pairs), torch.ones(50, dtype=torch.bool),
             torch.as_tensor(pairs), torch.ones(50, dtype=torch.bool), 0.3,
             0.3, 0.1, 0.5, 0.3, 64)
-    for kw in (dict(allpairs_cols=True), dict(q_uniform=True)):
-        with pytest.raises(NotImplementedError):
-            tc.find_congruent_quads_grid(*args, **kw)
+    # the scale-mode table and probe walk run (parity:
+    # tests/test_torch_scale.py); the implicit table needs its row_cap,
+    # as in the JAX package
+    with pytest.raises(ValueError):
+        tc.find_congruent_quads_grid(*args, allpairs_cols=True)
+    walk = tc.find_congruent_quads_grid(*args, q_uniform=True, q_rot=7)
+    assert walk[0].shape == (64, 4) and int(walk[4]) == 0
     # HEALPix bins run in both joins (parity: tests/test_torch_healpix.py)
     grid = tc.find_congruent_quads_grid(*args, direction_bins="healpix")
     dense = tc.find_congruent_quads(*args, direction_bins="healpix")
