@@ -36,6 +36,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    samples (n = 8192 and 32768), rejection on and off, bit-identical to
    each other and to the plain version, with the share of tile pairs
    rejected;
+4b. K2 over the trial axis, T = 16 captures of the headline's Q (a
+   step's edge) and T = 64 over four rotated copies (a step of 5j), one
+   launch each, edge 0 with the hash and rejection on; K1 over the
+   pairs axis, the exact stage for G = 1 and 4 pairs in one launch with
+   indexes built beforehand: each bit-identical to its plain version,
+   with its time, index build, plain time and bound;
 5. the headline registration — the 100k-point noisy bumpy-sphere pair
    of bench.py, Options(delta=0.01, sample_size=8192) through
    MatchSuper4PCS on the GPU (rowcap engine, rejection on).
@@ -78,13 +84,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    clouds and gates, K1 and no K2; then a step's wall and device time
    (4 bases, each sorting a table of nq^2 rows) and the overflow
    counters;
+5j. ``register_batch`` (super4pcs_tpu_torch.parallel) on G = 4 pairs at
+   the headline's width: the headline pair and the three consecutive
+   pairs of 5g's sequence-full views, 5g sequence-full's options
+   (delta 0.01, sample_size 8192, 30 s, seed 5, overlap 0.5,
+   threshold 0.6); every pair at LCP >= 0.6 and within rotDiff <= 0.2 /
+   trDiff <= 0.1 of its known relative pose, K1 and K2 launched; then,
+   outside the path, one step's launches (2 capture launches covering
+   2 x 64 captures, 3 verify launches, no index build) and the wall,
+   device time and idle share of a step;
 6. the 500-point known-pose recipe on the GPU (dense engine,
    lcp_min_d2_within only);
-7. a profile of headline steps: device busy and idle share per step,
-   kernels per step, time by kernel, with the kernels of K1's index
-   build (the wrapper's "grid_index" range) counted under K1: the
-   verify's ms per step, kernel and index;
-8. one line of the entry points' numbers (5c-5i), one JSON line of
+7. a headline step's launches (2 capture launches, 3 verify
+   launches, no verify index built: it is built once per run) and a
+   profile of headline steps: device busy and idle share per step,
+   kernels per step, time by kernel;
+8. one line of the entry points' numbers (5c-5j), one JSON line of
    per-kernel results, then the last line {"ok": true, "device": {...}}.
 
 Kernel times are device times from torch.profiler (K2's includes its
@@ -96,8 +111,12 @@ filtered registration once per seed with tile-pair rejection on and
 once with it off (alternating which goes first), and prints each run's
 search seconds, trials and LCP and the medians.
 
-Each registration (5, 5b, 5c-5i, 6) is a path of its own: the launch
-counts are set to 0 just before it and read just after.
+Each registration (5, 5b, 5c-5j, 6) is a path of its own: the launch
+counts (K2's launches and the captures they covered) are set to 0 just
+before it and read just after.
+
+With ``--scale-only`` it runs phases 1-2 and 5h-5i alone, so that 5h is
+the first registration in its process.
 
 Exits with code 2 and prints no result when no CUDA device is present.
 """
@@ -848,6 +867,100 @@ def _scale_paths(s4, counters, by_path):
     return numbers
 
 
+def _batch_path(P, Q, s4, counters, by_path):
+    """Phase 5j: ``register_batch`` on G = 4 pairs at the headline's
+    width (the headline pair and the three consecutive pairs of the
+    sequence-full views) with 5g sequence-full's options; each pair
+    gated on LCP >= 0.6 and its known relative pose; then, outside the
+    path, one step's launches and two steps' wall and device time of
+    the same batch. Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from super4pcs_tpu_torch.parallel import batch
+    scans, gts = _sequence_views(P)
+    pairs = [(s4.PointCloud(P), s4.PointCloud(Q))] + [
+        (s4.PointCloud(scans[i]), s4.PointCloud(scans[i + 1]))
+        for i in range(3)]
+    # scan i = the model moved by gts[i], so scan i + 1 -> scan i is
+    # gts[i] gts[i + 1]^-1
+    truth = [_ground_truth()] + [
+        gts[i].astype(np.float64) @ np.linalg.inv(
+            gts[i + 1].astype(np.float64)) for i in range(3)]
+    opts = s4.Options(delta=0.01, sample_size=8192, max_time_seconds=30,
+                      random_seed=5).configure_overlap(0.5, 0.6)
+    res, counts, wall, peak = _run_path(
+        "batch", lambda: batch.register_batch(pairs, opts, device="cuda"),
+        counters)
+    by_path["batch"] = counts
+    b_eff = s4.matcher.resolve_bases_per_step(opts, 8192)
+    numbers = dict(wall_s=wall, peak_mib=peak, pairs=[])
+    ok = True
+    for g, (r, gt) in enumerate(zip(res, truth)):
+        rot_diff, tr_diff = s4.reference_pose_diff(r.transform, gt)
+        st = r.stats
+        _log(f"batch pair {g}: score={r.score:.4f} trials={r.n_trials} "
+             f"search_s={st.get('search_seconds', float('nan')):.3f} "
+             f"q_padded={st['q_padded']} rotDiff={rot_diff:.4f} "
+             f"trDiff={tr_diff:.4f} straggler_escalated_to="
+             f"{st.get('straggler_escalated_to', '-')} compile_s="
+             f"{st['compile_seconds']:.3f} quads_overflow="
+             f"{st['quads_overflow']} pairs_overflow="
+             f"{st['pairs_overflow']}")
+        ok &= r.score >= 0.6 and rot_diff <= 0.2 and tr_diff <= 0.1
+        numbers["pairs"].append(dict(
+            score=r.score, trials=r.n_trials,
+            search_s=st.get("search_seconds"), q_padded=st["q_padded"],
+            rot_diff=rot_diff, tr_diff=tr_diff,
+            redeemed="straggler_escalated_to" in st))
+    numbers["compile_s"] = res[0].stats["compile_seconds"]
+    _log(f"batch: G=4 B={b_eff} T={4 * b_eff} wall_s={wall:.3f} "
+         f"peak_MiB={peak:.1f}")
+    if not ok:
+        raise SystemExit("batch: a pair missed its gates")
+    if min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0:
+        raise SystemExit("batch: a kernel of the path never launched")
+
+    # one step's launches, then the wall of 2 steps and the device time
+    # of 2 more under the profiler (outside the path)
+    run = batch.BatchRun(pairs, opts, device="cuda")
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    builds = run.p_index.builds
+    run.run_step(0)
+    per_step = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in (1, 2):
+        run.run_step(i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 2
+    evs = _device_events(lambda: [run.run_step(i) for i in (3, 4)])
+    busy = sum(t for _, t, _ in evs) / 2 / 1e3
+    k2_ms = sum(t for name, t, _ in evs
+                if any(k in name for k in K2_NAMES)) / 2e3
+    k1_ms = sum(t for name, t, _ in evs if K1W_NAME in name) / 2e3
+    sort_ms = sum(t for name, t, _ in evs if "sort" in name.lower()) / 2e3
+    _log(f"batch step (G=4, T={4 * b_eff}): launches per step "
+         f"{per_step}; index builds during steps "
+         f"{run.p_index.builds - builds}; wall {1e3 * step_s:.1f} ms, "
+         f"device busy {busy:.1f} ms (idle share "
+         f"{100 * (1 - busy / (1e3 * step_s)):.0f}%), {len(evs) / 2:.0f} "
+         f"kernels per step; K2 {k2_ms:.3f} ms, K1 {k1_ms:.3f} ms, sorts "
+         f"{sort_ms:.3f} ms")
+    if (per_step["rowcap_capture"] != 2
+            or per_step["rowcap_capture_captures"] != 2 * 4 * b_eff
+            or per_step["lcp_min_d2_within"] != 3
+            or run.p_index.builds != builds):
+        raise SystemExit("batch: a step launched other than 2 captures of "
+                         "every trial and 3 verifies, or built an index")
+    numbers.update(step_launches=per_step, step_wall_ms=1e3 * step_s,
+                   step_busy_ms=busy, step_kernels=len(evs) / 2,
+                   step_k2_ms=k2_ms, step_k1_ms=k1_ms,
+                   step_sort_ms=sort_ms)
+    del run
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -884,6 +997,21 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 _log(f"  {name}: {line.strip()}")
+
+    counters = {"lcp_min_d2_within": (k1.lcp_min_d2_within, "launches"),
+                "lcp_min_d2": (k1.lcp_min_d2, "launches"),
+                "rowcap_capture": (k2.rowcap_capture, "launches"),
+                "rowcap_capture_captures": (k2.rowcap_capture, "captures"),
+                "rowcap_capture_filtered": (k2.rowcap_capture,
+                                            "filtered_launches")}
+    if "--scale-only" in sys.argv:
+        # phases 5h-5i alone: 5h is then the first registration in its
+        # process (the off-clock warm-up's check)
+        _log("entry points:", json.dumps(_scale_paths(s4, counters, {})))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # the headline clouds and their samples, as the matcher forms them
     P, Q = bench.fine_delta_pair()
@@ -1231,11 +1359,108 @@ def main() -> int:
                                  "version")
     del fq, fn_, fc, on, off, ref, unf
 
-    counters = {"lcp_min_d2_within": (k1.lcp_min_d2_within, "launches"),
-                "lcp_min_d2": (k1.lcp_min_d2, "launches"),
-                "rowcap_capture": (k2.rowcap_capture, "launches"),
-                "rowcap_capture_filtered": (k2.rowcap_capture,
-                                            "filtered_launches")}
+    # 4b. K2 and K1 over the trial and pairs axes at the headline's
+    # shapes: T = 16 captures of one Q (a headline step's edge) and T =
+    # 64 over four (a step of phase 5j), one launch each; the verify's
+    # exact stage for G = 1 and G = 4 pairs in one launch, their indexes
+    # built once beforehand
+    gen.manual_seed(64)
+    many, inv_many, _, _ = select.select_base(
+        p_pos, float(torch.linalg.vector_norm(q_pos, dim=1).max() * 2),
+        *select.draw_base_indices(gen, p_pos.shape[0], 64, 1000))
+    q4 = torch.stack([q_pos] + [
+        q_pos @ torch.as_tensor(_axis_rot(ax, 0.7), dtype=torch.float32,
+                                device=dev).T
+        for ax in ((1, 0, 0), (0, 1, 0), (1, 1, 1))]).contiguous()
+    n_pad = k2._round_up(q_pos.shape[0], 2048)
+    batched = {"K2": {}, "K1": {}}
+    for label, nt, n_sets in (("T=16", 16, 1), ("T=64", 64, 4)):
+        qs = q4[:n_sets]
+        kw0 = k2.edge_args(qs, p_pos[many[:nt]], eps)[0]
+        bnd = k2.reject_bounds(qs)
+        cap = (qs, kw0["lo2"], kw0["hi2"], row_cap)
+        ckw = dict(inv=inv_many[:nt], cell=cell, emit_hash=True)
+        before = (k2.rowcap_capture.launches, k2.rowcap_capture.captures)
+        got = k2.rowcap_capture(*cap, bounds=bnd, **ckw)
+        made = (k2.rowcap_capture.launches - before[0],
+                k2.rowcap_capture.captures - before[1])
+        ref = k2.rowcap_capture_plain(*cap, **ckw)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        k2_err = max([k2_err] + [int((a.long() - b.long()).abs().max())
+                                 for a, b in zip(got, ref)])
+        per_set = nt // n_sets
+        rej = torch.stack([k2.tile_reject_mask(
+            bnd[0][t // per_set], bnd[1][t // per_set], kw0["lo2"][t],
+            kw0["hi2"][t]).float().mean() for t in range(nt)])
+        captured = int((got[0] >= 0).sum())
+        ms = _kernel_ms(lambda: k2.rowcap_capture(*cap, bounds=bnd, **ckw),
+                        K2_NAMES, reps=10)
+        plain_ms = _cuda_ms(lambda: k2.rowcap_capture_plain(*cap, **ckw),
+                            reps=1)
+        bound_ms, bound_by = _bound(
+            K2_BAND_OPS * float((1.0 - rej).sum()) * n_pad * n_pad
+            + K2_HASH_OPS * captured,
+            12 * n_sets * q_pos.shape[0] + nt * 4 * n_pad * (2 * row_cap + 1))
+        _log(f"K2 batched {label}: {n_sets} point set(s), {nt} trials in "
+             f"{made[0]} launch(es) ({made[1]} captures), edge 0 with hash,"
+             f" rejection on ({100 * float(rej.mean()):.1f}% of tile pairs)"
+             f": bit-identical to the plain version={same}, hits="
+             f"{int(got[1].sum())} captured={captured}; kernel {ms:.4f} ms "
+             f"({ms / nt:.4f} ms per trial) plain {plain_ms:.3f} ms bound "
+             f"{bound_ms:.4f} ms ({bound_by})")
+        if not same or made != (1, nt):
+            raise SystemExit(f"batched K2 {label} disagrees with its "
+                             f"plain version or launched {made}")
+        batched["K2"][label] = dict(
+            trials=nt, sets=n_sets, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            rejected=float(rej.mean()))
+        del got, ref
+        # the verify's exact stage for G pairs (the headline pair each)
+        trs = torch.stack([near_pose(64) for _ in range(n_sets)])
+        qq = q_pos[None].expand(n_sets, -1, -1).contiguous()
+        pp = p_pos[None].expand(n_sets, -1, -1)
+        index = k1.build_index(pp, opts.delta)
+        before = k1.lcp_min_d2_within.launches
+        got = k1.lcp_min_d2_within(trs, qq, pp, opts.delta, index)
+        made = k1.lcp_min_d2_within.launches - before
+        walk = k1.lcp_min_d2_within_plain(trs, qq, pp, opts.delta, index)
+        torch.cuda.synchronize()
+        same = torch.equal(got, walk)
+        err, bad = _finite_err(got, walk)
+        k1w_err, k1w_bad = max(k1w_err, err), k1w_bad + bad
+        ms = _kernel_ms(lambda: k1.lcp_min_d2_within(
+            trs, qq, pp, opts.delta, index), K1W_NAME, reps=10)
+        build_ms = _device_ms(lambda: k1.build_index(pp, opts.delta), reps=3)
+        plain_ms = _cuda_ms(lambda: k1.lcp_min_d2_within_plain(
+            trs, qq, pp, opts.delta, index), reps=1)
+        tested = 0
+        for g in range(n_sets):
+            _, keys, grid = index.part(g)
+            tx, ty, tz = (t.reshape(-1)
+                          for t in k1._transformed(trs[g], qq[g]))
+            tested += int(k1.walk_ranges(tx, ty, tz, keys, grid,
+                                         opts.delta)[1].sum())
+        c, nq_, np_ = trs.shape[1], qq.shape[1], pp.shape[1]
+        bound_ms, bound_by = _bound(
+            K1_OPS * tested,
+            4 * n_sets * (16 * c + 3 * nq_ + 5 * np_ + c * nq_))
+        _log(f"K1 batched exact stage, G={n_sets} pairs x C={c} x nq={nq_}"
+             f" x np={np_} in {made} launch: equal to the plain walk="
+             f"{same}, hits={int(torch.isfinite(got).sum())} pair tests="
+             f"{tested}; kernel {ms:.4f} ms, index build (once per run) "
+             f"{build_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+             f"{bound_ms:.5f} ms ({bound_by})")
+        if not same or made != 1:
+            raise SystemExit(f"batched K1 at G={n_sets} disagrees with its "
+                             f"plain walk or launched {made} times")
+        batched["K1"][f"G={n_sets}"] = dict(
+            pairs=n_sets, candidates=n_sets * c, ms=ms, plain_ms=plain_ms,
+            index_build_ms=build_ms, bound_ms=bound_ms, bound_by=bound_by,
+            pair_tests=tested)
+        del got, walk, index
+    del q4
+
     gt = _ground_truth()
     b_eff = s4.matcher.resolve_bases_per_step(opts, q_pos.shape[0])
     by_path = {}
@@ -1289,6 +1514,8 @@ def main() -> int:
     file_numbers.update(_sequence_paths(P, s4, counters, by_path))
     # 5h-5i. similarity mode
     file_numbers.update(_scale_paths(s4, counters, by_path))
+    # 5j. register_batch on four pairs at the headline's width
+    file_numbers["batch"] = _batch_path(P, Q, s4, counters, by_path)
 
     # 6. the 500-point known-pose recipe (dense engine, K1 only: its
     # pruned verify)
@@ -1317,18 +1544,25 @@ def main() -> int:
     if counts["lcp_min_d2_within"] <= 0:
         raise SystemExit("K1 never launched on the recipe path")
 
-    # 7. where a headline step's time goes: 4 steps under the profiler,
-    # after 4 unprofiled ones for their wall time (outside every path)
+    # 7. where a headline step's time goes: one step's launches, then 4
+    # steps under the profiler after 4 unprofiled ones for their wall
+    # time (outside every path)
     m = s4.MatchSuper4PCS(opts, device="cuda")
     m._init(s4.PointCloud(P), s4.PointCloud(Q))
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    builds = m._p_index.builds
     m._run_step(0)
+    step_launches = {k: getattr(obj, attr)
+                     for k, (obj, attr) in counters.items()}
     t0 = time.perf_counter()
     for i in range(1, 5):
         m._run_step(i)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / 4
-    # the kernels of K1's index build (the wrapper's "grid_index" range)
-    # are counted with K1, not with the sorts and other torch ops
+    # the kernels of K1's index build (its "grid_index" range) would be
+    # counted with K1: the index is built once per run, so none may run
+    # in a step
     evs = _device_events(lambda: [m._run_step(i) for i in range(5, 9)],
                          scope="grid_index")
     busy = sum(t for _, t, _ in evs) / 4 / 1e3
@@ -1340,10 +1574,15 @@ def main() -> int:
                     "sort" if "sort" in name.lower() else "other"))
         ms_, n_ = parts.get(key, (0.0, 0))
         parts[key] = (ms_ + t / 4 / 1e3, n_ + 1)
-    if "K1 grid_index" not in parts:
-        raise SystemExit("the profile holds no kernel of K1's index build")
-    k1_step = {k: parts.get(k, (0.0, 0))[0]
-               for k in (K1W_NAME, "K1 grid_index")}
+    _log(f"headline step launches (step 0 of seed 1): {step_launches}; "
+         f"verify index builds: {builds} in the run's set-up, "
+         f"{m._p_index.builds - builds} in its steps")
+    if ("K1 grid_index" in parts or m._p_index.builds != builds
+            or step_launches["rowcap_capture"] != 2
+            or step_launches["lcp_min_d2_within"] != 3):
+        raise SystemExit("a headline step launched other than 2 captures "
+                         "and 3 verifies, or built a verify index")
+    k1_step = {K1W_NAME: parts.get(K1W_NAME, (0.0, 0))[0]}
     _log(f"headline step profile (steps 5-8 of seed 1): wall "
          f"{1e3 * step_s:.1f} ms per unprofiled step, device busy "
          f"{busy:.1f} ms per step (idle share "
@@ -1351,9 +1590,8 @@ def main() -> int:
          f"{len(evs) / 4:.0f} kernels per step; per step: " + ", ".join(
              f"{k} {v[0]:.2f} ms in {v[1] / 4:.0f} launches"
              for k, v in sorted(parts.items(), key=lambda kv: -kv[1][0])))
-    _log(f"K1 verify per step: {sum(k1_step.values()):.3f} ms "
-         f"(kernel {k1_step[K1W_NAME]:.3f} ms + index build "
-         f"{k1_step['K1 grid_index']:.3f} ms)")
+    _log(f"K1 verify per step: {k1_step[K1W_NAME]:.3f} ms (kernel; its "
+         f"indexes are built once per run)")
 
     def launches(name):
         return {path: c[name] for path, c in by_path.items()}
@@ -1370,7 +1608,8 @@ def main() -> int:
              max_abs_err=k1w_err, nonfinite_mismatches=k1w_bad,
              **k1w_row,
              step_ms=k1_step[K1W_NAME],
-             step_ms_with_index=sum(k1_step.values()),
+             step_launches=step_launches["lcp_min_d2_within"],
+             batched=batched["K1"],
              one_million={k: k1w_1m[k] for k in (
                  "shape", "ms", "bound_ms", "bound_by", "index_build_ms",
                  "pair_tests", "brute_force_bound_ms")}),
@@ -1390,7 +1629,12 @@ def main() -> int:
                        f":323); {rk}:233 (K2d pair filters)"),
              launches=sum(launches("rowcap_capture").values()),
              launches_by_path=launches("rowcap_capture"),
+             captures=sum(launches("rowcap_capture_captures").values()),
+             captures_by_path=launches("rowcap_capture_captures"),
              filtered_launches=launches("rowcap_capture_filtered"),
+             step_launches=step_launches["rowcap_capture"],
+             step_captures=step_launches["rowcap_capture_captures"],
+             batched=batched["K2"],
              max_abs_err=float(k2_err), **k2_row),
     ]
     if "--seeds" in sys.argv:

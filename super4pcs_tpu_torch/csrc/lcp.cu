@@ -118,6 +118,14 @@ lcp_min_d2_kernel(const float* __restrict__ transforms,
 // are read through the read-only cache (__ldg). The matcher's Q is
 // kd-ordered, so the threads of a warp walk neighbouring cells.
 //
+// Pairs axis. Batched registration verifies the candidates of G point
+// cloud pairs in one launch (the TPU vmapped the verify over the pairs).
+// The wrapper builds each pair's index once per run and concatenates
+// them: pair g's points and keys are [offs[g], offs[g + 1]) of pts and
+// keys, its grid row g of grid. Every pair has C candidates and nq
+// queries; candidate c belongs to pair c / C and searches only its
+// pair's range, so each pair's output is the single-pair kernel's.
+//
 // Bound. The work depends on the data: per query, up to 9-16 binary
 // searches over np keys and the points of 27-64 cells of side eps (about
 // 10 points on a surface sampled at eps), each a 9-operation d2 test;
@@ -145,19 +153,24 @@ lcp_min_d2_within_kernel(const float* __restrict__ transforms,
                          const float* __restrict__ q,
                          const float4* __restrict__ pts,
                          const int* __restrict__ keys,
-                         const float* __restrict__ grid,
+                         const int* __restrict__ offs,
+                         const float* __restrict__ grids,
                          float* __restrict__ out, long long total, int nq,
-                         int np, float eps, float eps2) {
+                         int per_pair, float eps, float eps2) {
   const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (g >= total) return;
   const long long c = g / nq;
   const long long qi = g - c * nq;
+  const int pair = (int)(c / per_pair);
   const float* m = transforms + 16 * c;
-  const float x = q[3 * qi], y = q[3 * qi + 1], z = q[3 * qi + 2];
+  const float* qp = q + 3 * ((long long)pair * nq + qi);
+  const float x = qp[0], y = qp[1], z = qp[2];
   const float t[3] = {row_apply(m, x, y, z), row_apply(m + 4, x, y, z),
                       row_apply(m + 8, x, y, z)};
+  const float* grid = grids + 7 * pair;
+  const int p0 = offs[pair], p1 = offs[pair + 1];
   float best = INFINITY;
-  if (isfinite(t[0]) && isfinite(t[1]) && isfinite(t[2])) {
+  if (p1 > p0 && isfinite(t[0]) && isfinite(t[1]) && isfinite(t[2])) {
     const float side = grid[3];
     const float tmax = fmaxf(fmaxf(fabsf(t[0]), fabsf(t[1])),
                              fmaxf(fabsf(t[2]), eps));
@@ -180,13 +193,13 @@ lcp_min_d2_within_kernel(const float* __restrict__ transforms,
     if (!empty) {
       const int ny = (int)grid[5], nz = (int)grid[6];
       const float tx = t[0], ty = t[1], tz = t[2];
-      int from = 0;  // keys grow with (ix, iy): later columns start later
+      int from = p0;  // keys grow with (ix, iy): later columns start later
       for (int ix = lo[0]; ix <= hi[0]; ++ix) {
         for (int iy = lo[1]; iy <= hi[1]; ++iy) {
           const int col = (ix * ny + iy) * nz;
           const int kend = col + hi[2];
-          int j = lower_bound(keys, from, np, col + lo[2]);
-          for (; j < np && __ldg(keys + j) <= kend; ++j) {
+          int j = lower_bound(keys, from, p1, col + lo[2]);
+          for (; j < p1 && __ldg(keys + j) <= kend; ++j) {
             const float4 v = __ldg(pts + j);
             const float dx = __fsub_rn(tx, v.x);
             const float dy = __fsub_rn(ty, v.y);
@@ -221,23 +234,25 @@ extern "C" int lcp_min_d2(const void* transforms, const void* q,
   return (int)cudaGetLastError();
 }
 
-// transforms: (c, 4, 4) f32, q: (nq, 3) f32, pts: (np, 4) f32 and keys:
-// (np,) i32 sorted by key, grid: (7,) f32 [lo_x, lo_y, lo_z, L, nx, ny,
-// nz] (kernels/lcp.py::grid_index), out: (c, nq) f32; all contiguous on
-// the device of `stream`; np > 0; eps2 = float32(eps) * float32(eps).
-// Returns cudaGetLastError.
+// Pairs axis of G pairs: transforms (G * per_pair, 4, 4) f32 (candidate
+// c of pair c / per_pair), q: (G, nq, 3) f32, pts: (N, 4) f32 and keys:
+// (N,) i32, each pair's range [offs[g], offs[g + 1]) sorted by key, offs:
+// (G + 1,) i32, grids: (G, 7) f32 [lo_x, lo_y, lo_z, L, nx, ny, nz]
+// (kernels/lcp.py::build_index), out: (G * per_pair, nq) f32; all
+// contiguous on the device of `stream`; eps2 = float32(eps) *
+// float32(eps). One launch. Returns cudaGetLastError.
 extern "C" int lcp_min_d2_within(const void* transforms, const void* q,
                                  const void* pts, const void* keys,
-                                 const void* grid, void* out, int c,
-                                 int nq, int np, float eps, float eps2,
-                                 void* stream) {
+                                 const void* offs, const void* grids,
+                                 void* out, int c, int per_pair, int nq,
+                                 float eps, float eps2, void* stream) {
   const long long total = (long long)c * nq;
   if (total == 0) return 0;
   const long long blocks = (total + THREADS - 1) / THREADS;
   lcp_min_d2_within_kernel<<<(unsigned)blocks, THREADS, 0,
                              (cudaStream_t)stream>>>(
       (const float*)transforms, (const float*)q, (const float4*)pts,
-      (const int*)keys, (const float*)grid, (float*)out, total, nq, np,
-      eps, eps2);
+      (const int*)keys, (const int*)offs, (const float*)grids,
+      (float*)out, total, nq, per_pair, eps, eps2);
   return (int)cudaGetLastError();
 }

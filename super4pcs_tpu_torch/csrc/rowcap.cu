@@ -1,5 +1,5 @@
 // K2: row-capped band capture of one base edge, with the pair filters
-// and tile-pair rejection.
+// and tile-pair rejection, over a trial axis: T captures in one launch.
 //
 // Replaces the TPU kernel super4pcs_tpu/kernels/rowcap_pallas.py::
 // _kernel + _kernel_body (launched by _capture_edge), all of it: the
@@ -15,13 +15,25 @@
 // join's spatial hash of the pair's invariant point a + inv * (b - a)
 // (0x7fffffff when empty).
 //
+// Trial axis. The TPU ran one capture per base edge and vmapped it over
+// a step's bases (and, in batched registration, over the pairs), which
+// adds a grid axis to the pallas_call. Here blockIdx.z is the trial t of
+// T = G x B captures (G point sets, B trials each): trial t reads the
+// points, normals and tile bounds of its set g = t / B, its own band,
+// invariant and filter planes, and writes its own (n_pad, row_cap)
+// slice of cols and h and (n_pad,) slice of rc. Each trial's slice is
+// the single capture's output bit for bit, and a call is one prep launch
+// and one capture launch whatever T is.
+//
 // Design. Lanes own columns and rows are broadcast. A prep kernel runs
 // first, once per call: it fills cols and h with their empty-slot
 // sentinels (coalesced, so the capture writes only its hits) and writes
 // the padded column planes, (x, y, z, |c|^2) as float4 and, with
-// filters, (nx, ny, nz, |n|^2) and (pos . seg, column score, row score,
-// 0). A block of 8 warps covers 64 rows (8 per warp) of one 256-row
-// tile and one 512-column segment, 2048 blocks at n = 8192. Tile-pair
+// normals, (nx, ny, nz, |n|^2), once per point set, and with the other
+// filters (pos . seg, column score, row score, 0), once per trial. A
+// block of 8 warps covers 64 rows (8 per warp) of one 256-row tile and
+// one 512-column segment of one trial, 2048 blocks per trial at
+// n = 8192. Tile-pair
 // rejection is block-uniform at the TPU's granularity (256-row tile x
 // 512-column segment): a block first reads its row tile's and its
 // segment's bounding spheres, and when the two cannot meet the band
@@ -47,7 +59,7 @@
 // test is the TPU kernel's, with its conservative slack, so
 // the output is the same with rejection on or off.
 //
-// Bound. Per edge, n_pad^2 band tests of about 10 fp32 operations (dot,
+// Bound. Per edge and trial, n_pad^2 band tests of about 10 fp32 operations (dot,
 // d2, two compares) on the CUDA cores, minus the rejected tile pairs.
 // An in-band pair adds 19 operations for the normal band (a second dot,
 // two square roots), 2 for the scores and 5 for the angle (one square
@@ -162,58 +174,77 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Launch arguments (null pointers for what is off).
+// Launch arguments (null pointers for what is off). Per set: q,
+// normals, rowb, colb, pts, nrm; per trial: geo, aux, rcscore, ext,
+// cols, rc, h.
 struct Args {
-  const float* q;        // (n, 3)
+  const float* q;        // (G, n, 3)
   int n, n_pad, seg_q, row_cap, emit_hash, use_angle, use_reject;
-  const float* geo;      // [lo2, hi2, inv, cell, nang, nthr, cmax]
-  const float* normals;  // (n, 3)
-  const float* aux;      // (2, n): pos . seg, |n|^2
-  const float* rcscore;  // (2, n): row score, column score
-  const float* rowb;     // (n_pad / 256, 4) bounding spheres
-  const float* colb;     // (n_pad / 512, 4)
-  float4* pts;           // (n_pad,) x, y, z, |c|^2 (prep output)
-  float4* nrm;           // (n_pad,) nx, ny, nz, |n|^2, with normals
-  float4* ext;           // (n_pad,) pos . seg, column score, row score, 0
-  int* cols;             // (n_pad, row_cap)
-  int* rc;               // (n_pad,), zeroed
-  int* h;                // (n_pad, row_cap) with emit_hash
+  int per_set;           // B: trials per point set (trial t -> set t / B)
+  int geo_stride;        // floats of geo per trial (4, or 7 with filters)
+  const float* geo;      // (T, geo_stride) [lo2, hi2, inv, cell, nang,
+                         // nthr, cmax]
+  const float* normals;  // (G, n, 3)
+  const float* aux;      // (T, 2, n): pos . seg, |n|^2
+  const float* rcscore;  // (T, 2, n): row score, column score
+  const float* rowb;     // (G, n_pad / 256, 4) bounding spheres
+  const float* colb;     // (G, n_pad / 512, 4)
+  float4* pts;           // (G, n_pad) x, y, z, |c|^2 (prep output)
+  float4* nrm;           // (G, n_pad) nx, ny, nz, |n|^2, with normals
+  float4* ext;           // (T, n_pad) pos . seg, column score, row
+                         // score, 0
+  int* cols;             // (T, n_pad, row_cap)
+  int* rc;               // (T, n_pad), zeroed
+  int* h;                // (T, n_pad, row_cap) with emit_hash
 };
 
-// Once per call: the empty tables (-1 in cols, SENT in h, written
+// Once per call, grid (n_pad / 256, T): block (x, t) writes the empty
+// slots of rows [256 x, 256 x + 256) of trial t (-1 in cols, SENT in h,
 // coalesced as int4, so the capture kernel writes only its hits) and the
-// padded planes: a padded point (j >= n) sits at (1e18, 0, 0) with zero
-// filter planes, as in the plain version.
+// padded planes of those columns: trial t's filter plane, and, for the
+// first trial of each set, the set's points and normals. A padded point
+// (j >= n) sits at (1e18, 0, 0) with zero filter planes, as in the plain
+// version.
 __global__ void __launch_bounds__(256) rowcap_prep_kernel(const Args a) {
-  const long long slots4 = (long long)a.n_pad * a.row_cap / 4;
-  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < slots4;
-       i += (long long)gridDim.x * 256) {
-    reinterpret_cast<int4*>(a.cols)[i] = make_int4(-1, -1, -1, -1);
+  const int t = blockIdx.y;
+  const int g = t / a.per_set;
+  const int row0 = blockIdx.x * 256;
+  const long long first4 =
+      ((long long)t * a.n_pad + row0) * a.row_cap / 4;
+  const int slots4 = 64 * a.row_cap;  // 256 rows, row_cap % 4 == 0
+  for (int i = threadIdx.x; i < slots4; i += 256) {
+    reinterpret_cast<int4*>(a.cols)[first4 + i] = make_int4(-1, -1, -1, -1);
     if (a.emit_hash)
-      reinterpret_cast<int4*>(a.h)[i] = make_int4(SENT, SENT, SENT, SENT);
+      reinterpret_cast<int4*>(a.h)[first4 + i] =
+          make_int4(SENT, SENT, SENT, SENT);
   }
-  const int j = blockIdx.x * 256 + threadIdx.x;
-  if (j >= a.n_pad) return;
+  const int j = row0 + threadIdx.x;
   const bool real = j < a.n;
-  float x = PAD, y = 0.f, z = 0.f;
-  if (real) {
-    x = a.q[3LL * j];
-    y = a.q[3LL * j + 1];
-    z = a.q[3LL * j + 2];
-  }
-  a.pts[j] = make_float4(x, y, z, sq3(x, y, z));
-  if (a.nrm) {
-    a.nrm[j] = real ? make_float4(a.normals[3LL * j],
-                                  a.normals[3LL * j + 1],
-                                  a.normals[3LL * j + 2], a.aux[a.n + j])
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long pj = (long long)g * a.n_pad + j;  // set plane index
+  const long long qj = (long long)g * a.n + j;      // set point index
+  const float* aux = a.aux ? a.aux + 2LL * t * a.n : nullptr;
+  if (t % a.per_set == 0) {
+    float x = PAD, y = 0.f, z = 0.f;
+    if (real) {
+      x = a.q[3 * qj];
+      y = a.q[3 * qj + 1];
+      z = a.q[3 * qj + 2];
+    }
+    a.pts[pj] = make_float4(x, y, z, sq3(x, y, z));
+    if (a.nrm) {
+      a.nrm[pj] = real ? make_float4(a.normals[3 * qj],
+                                     a.normals[3 * qj + 1],
+                                     a.normals[3 * qj + 2], aux[a.n + j])
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
   if (a.ext) {
+    const float* sc = a.rcscore ? a.rcscore + 2LL * t * a.n : nullptr;
     const bool ang = real && a.use_angle;
-    const bool sc = real && a.rcscore;
-    a.ext[j] = make_float4(ang ? a.aux[j] : 0.f,
-                           sc ? a.rcscore[a.n + j] : 0.f,
-                           sc ? a.rcscore[j] : 0.f, 0.f);
+    const bool has = real && sc;
+    a.ext[(long long)t * a.n_pad + j] =
+        make_float4(ang ? aux[j] : 0.f, has ? sc[a.n + j] : 0.f,
+                    has ? sc[j] : 0.f, 0.f);
   }
 }
 
@@ -231,44 +262,56 @@ rowcap_capture_kernel(const Args a) {
   __shared__ unsigned short pairs_s[kFilters ? WARPS : 1][R * 32];
   __shared__ unsigned pass_s[kFilters ? WARPS : 1][R];
 
-  const int n = a.n, seg_q = a.seg_q;
+  const int n = a.n, n_pad = a.n_pad, seg_q = a.seg_q;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned lanemask_lt = (1u << lane) - 1u;
   const int block_row0 = blockIdx.x * BLOCK_ROWS;
   const int row0 = block_row0 + warp * R;
   const int s = blockIdx.y;
+  const int t = blockIdx.z;          // trial
+  const int g = t / a.per_set;       // its point set
+  const float4* pts = a.pts + (long long)g * n_pad;
+  const float4* nrm = kNormals ? a.nrm + (long long)g * n_pad : nullptr;
+  const float4* ext = kExt ? a.ext + (long long)t * n_pad : nullptr;
+  const float* geo = a.geo + t * a.geo_stride;
+  int* cols = a.cols + (long long)t * n_pad * a.row_cap;
+  int* hout = a.emit_hash ? a.h + (long long)t * n_pad * a.row_cap
+                          : nullptr;
   const int live_rows = n - row0;  // rows r < live_rows are real
-  const float lo2 = a.geo[0], hi2 = a.geo[1];
+  const float lo2 = geo[0], hi2 = geo[1];
   // a rejected tile pair is neither staged nor tested: its slots stay
   // empty and it adds nothing to rc (block-uniform)
-  if (a.use_reject && tile_rejected(a.rowb + 4 * (block_row0 / ROW_TILE),
-                                    a.colb + 4 * s, lo2, hi2))
+  if (a.use_reject &&
+      tile_rejected(a.rowb + 4 * ((long long)g * (n_pad / ROW_TILE) +
+                                  block_row0 / ROW_TILE),
+                    a.colb + 4 * ((long long)g * (n_pad / COL_TILE) + s),
+                    lo2, hi2))
     return;
   const int c0 = s * COL_TILE;
   for (int k = threadIdx.x; k < COL_TILE; k += THREADS) {
-    cp_async16(&seg_pts[k], a.pts + c0 + k);
-    if (kNormals) cp_async16(&seg_nrm[k], a.nrm + c0 + k);
-    if (kExt) cp_async8(&seg_ext[k], a.ext + c0 + k);
+    cp_async16(&seg_pts[k], pts + c0 + k);
+    if (kNormals) cp_async16(&seg_nrm[k], nrm + c0 + k);
+    if (kExt) cp_async8(&seg_ext[k], ext + c0 + k);
   }
   cp_async_commit();
   if (kFilters) {
     for (int k = threadIdx.x; k < BLOCK_ROWS; k += THREADS) {
-      if (kNormals) row_nrm[k] = a.nrm[block_row0 + k];
-      if (kExt) row_ext[k] = a.ext[block_row0 + k];
-      if (kAngle) row_pts[k] = a.pts[block_row0 + k];
+      if (kNormals) row_nrm[k] = nrm[block_row0 + k];
+      if (kExt) row_ext[k] = ext[block_row0 + k];
+      if (kAngle) row_pts[k] = pts[block_row0 + k];
     }
   }
   float4 rows[R];
   int cnt[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    rows[r] = a.pts[row0 + r];
+    rows[r] = pts[row0 + r];
     cnt[r] = 0;
   }
-  const float inv = a.geo[2], cell = a.geo[3];
-  const float nang = kNormals ? a.geo[4] : 0.f;
-  const float nthr = kNormals ? a.geo[5] : 0.f;
-  const float cmax = kAngle ? a.geo[6] : 0.f;
+  const float inv = geo[2], cell = geo[3];
+  const float nang = kNormals ? geo[4] : 0.f;
+  const float nthr = kNormals ? geo[5] : 0.f;
+  const float cmax = kAngle ? geo[6] : 0.f;
   const long long slot0 = (long long)s * seg_q;
   cp_async_wait_all();
   __syncthreads();
@@ -354,14 +397,14 @@ rowcap_capture_kernel(const Args a) {
         if (slot < seg_q) {
           const long long at =
               (long long)(row0 + r) * a.row_cap + slot0 + slot;
-          a.cols[at] = j;
-          if (a.emit_hash) {
+          cols[at] = j;
+          if (hout) {
             const float4 ra = rows[r];
             const uint32_t hv =
                 (cell_of(ra.x, b.x, inv, cell) * 73856093u) ^
                 (cell_of(ra.y, b.y, inv, cell) * 19349669u) ^
                 (cell_of(ra.z, b.z, inv, cell) * 83492791u);
-            a.h[at] = (int)hv;
+            hout[at] = (int)hv;
           }
         }
       }
@@ -371,7 +414,7 @@ rowcap_capture_kernel(const Args a) {
   if (lane == 0) {
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      if (cnt[r]) atomicAdd(a.rc + row0 + r, cnt[r]);
+      if (cnt[r]) atomicAdd(a.rc + (long long)t * n_pad + row0 + r, cnt[r]);
   }
 }
 
@@ -383,30 +426,34 @@ void launch(dim3 grid, cudaStream_t stream, const Args& a) {
 
 }  // namespace
 
-// q: (n, 3) f32; geo: f32 on the device, [lo2, hi2, inv, cell] and, with
-// any filter, [nang, nthr, cmax] after them; cols: (n_pad, row_cap) i32;
-// rc: (n_pad,) i32, zeroed; h: (n_pad, row_cap) i32 when emit_hash, else
-// unused (may be null). Filters (null when off): normals (n, 3) f32 for
-// use_normals; aux (2, n) f32, row 0 pos . seg (use_angle), row 1 |n|^2
-// (use_normals); rcscore (2, n) f32 for use_rowcol. rowb (n_pad / 256,
-// 4) and colb (n_pad / 512, 4) f32 bounding spheres [cx, cy, cz, r] for
-// use_reject. work: 16-byte aligned scratch of n_pad float4 planes, one
-// for the points, one more with use_normals and one more with
-// use_rowcol or use_angle (kernels/rowcap.py::rowcap_capture). n_pad is a
-// multiple of 2048 and row_cap = (n_pad / 512) * seg_q. Returns
-// cudaGetLastError.
-extern "C" int rowcap_capture(const void* q, int n, int n_pad,
-                              const void* geo, int seg_q, int row_cap,
-                              int emit_hash, const void* normals,
-                              const void* aux, const void* rcscore,
-                              int use_normals, int use_rowcol,
-                              int use_angle, const void* rowb,
-                              const void* colb, int use_reject, void* work,
-                              void* cols, void* rc, void* h,
-                              void* stream) {
-  if (n_pad == 0) return 0;
+// T = trials captures over G point sets, trials = G * per_set; trial t
+// belongs to set t / per_set. q: (G, n, 3) f32; geo: (T, geo_stride) f32
+// on the device, per trial [lo2, hi2, inv, cell] and, with any filter
+// (geo_stride 7), [nang, nthr, cmax] after them; cols: (T, n_pad,
+// row_cap) i32; rc: (T, n_pad) i32, zeroed; h: (T, n_pad, row_cap) i32
+// when emit_hash, else unused (may be null). Filters (null when off):
+// normals (G, n, 3) f32 for use_normals; aux (T, 2, n) f32, row 0
+// pos . seg (use_angle), row 1 |n|^2 (use_normals); rcscore (T, 2, n)
+// f32 for use_rowcol. rowb (G, n_pad / 256, 4) and colb (G, n_pad / 512,
+// 4) f32 bounding spheres [cx, cy, cz, r] for use_reject. work: 16-byte
+// aligned scratch of float4 planes: G * n_pad for the points, G * n_pad
+// more with use_normals and T * n_pad more with use_rowcol or use_angle
+// (kernels/rowcap.py::rowcap_capture). n_pad is a multiple of 2048 and
+// row_cap = (n_pad / 512) * seg_q. One prep launch and one capture launch.
+// Returns cudaGetLastError.
+extern "C" int rowcap_capture(const void* q, int n, int n_pad, int trials,
+                              int per_set, const void* geo, int geo_stride,
+                              int seg_q, int row_cap, int emit_hash,
+                              const void* normals, const void* aux,
+                              const void* rcscore, int use_normals,
+                              int use_rowcol, int use_angle,
+                              const void* rowb, const void* colb,
+                              int use_reject, void* work, void* cols,
+                              void* rc, void* h, void* stream) {
+  if (n_pad == 0 || trials == 0) return 0;
   const int row_blocks = n_pad / BLOCK_ROWS;
   const int segs = n_pad / COL_TILE;
+  const long long sets = trials / per_set;
   const bool ext = use_rowcol || use_angle;
   Args a;
   a.q = (const float*)q;
@@ -417,6 +464,8 @@ extern "C" int rowcap_capture(const void* q, int n, int n_pad,
   a.emit_hash = emit_hash;
   a.use_angle = use_angle;
   a.use_reject = use_reject;
+  a.per_set = per_set;
+  a.geo_stride = geo_stride;
   a.geo = (const float*)geo;
   a.normals = (const float*)normals;
   a.aux = (const float*)aux;
@@ -424,14 +473,15 @@ extern "C" int rowcap_capture(const void* q, int n, int n_pad,
   a.rowb = (const float*)rowb;
   a.colb = (const float*)colb;
   a.pts = (float4*)work;
-  a.nrm = use_normals ? a.pts + n_pad : nullptr;
-  a.ext = ext ? a.pts + n_pad * (use_normals ? 2 : 1) : nullptr;
+  a.nrm = use_normals ? a.pts + sets * n_pad : nullptr;
+  a.ext = ext ? a.pts + sets * n_pad * (use_normals ? 2 : 1) : nullptr;
   a.cols = (int*)cols;
   a.rc = (int*)rc;
   a.h = (int*)h;
   const cudaStream_t st = (cudaStream_t)stream;
-  rowcap_prep_kernel<<<n_pad / 256, 256, 0, st>>>(a);  // before capture
-  const dim3 grid(row_blocks, segs);
+  // before the capture, on the same stream
+  rowcap_prep_kernel<<<dim3(n_pad / 256, trials), 256, 0, st>>>(a);
+  const dim3 grid(row_blocks, segs, trials);
   switch ((use_normals ? 1 : 0) | (use_rowcol ? 2 : 0) |
           (use_angle ? 4 : 0)) {
     case 0: launch<false, false, false>(grid, st, a); break;

@@ -9,7 +9,9 @@ say what bounds them and how they are laid out.
 
 - :func:`lcp_min_d2_within` is the verify of the main path: the same
   min, kept only where it is ``<= eps^2`` (``+inf`` elsewhere), found by
-  walking a cell index of P (:func:`grid_index`) instead of all of P.
+  walking a cell index of P (:func:`grid_index`, :func:`build_index`)
+  instead of all of P. One launch verifies the candidates of one cloud
+  pair or of G pairs; the caller builds the index once per run.
 - :func:`lcp_min_d2` is the brute force over all of P. It covers the
   TPU's streamed-P variant ``_lcp_min_stream_kernel`` (K3) and the
   untransformed ``_min_dist_kernel`` / ``_min_dist_stream_kernel`` (K4a
@@ -24,6 +26,7 @@ the same order, so they agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -143,7 +146,7 @@ def _lib():
         fn.restype = ctypes.c_int
     fn = lib.lcp_min_d2_within
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_float] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -180,6 +183,56 @@ def grid_index(p: torch.Tensor, eps):
     keys, perm = torch.sort(keys)
     pts = torch.nn.functional.pad(p[perm], (0, 1))
     return pts, keys, torch.cat([lo, side.reshape(1), dims])
+
+
+class GridIndex(NamedTuple):
+    """The cell indexes of G clouds for one radius, concatenated
+    (:func:`build_index`): cloud g's points and keys are rows
+    ``offs[g]:offs[g + 1]`` of ``pts``/``keys``, its grid ``grids[g]``."""
+    pts: torch.Tensor       # (N, 4) f32
+    keys: torch.Tensor      # (N,) int32
+    offs: torch.Tensor      # (G + 1,) int32, on the points' device
+    grids: torch.Tensor     # (G, 7) f32
+    sizes: tuple            # the G clouds' point counts (host ints)
+    eps: float              # float32(eps) the grids were sized for
+
+    def part(self, g: int):
+        """Cloud g's ``(pts, keys, grid)``, as :func:`grid_index`
+        returns them."""
+        o = sum(self.sizes[:g])
+        sl = slice(o, o + self.sizes[g])
+        return self.pts[sl], self.keys[sl], self.grids[g]
+
+
+def build_index(p: torch.Tensor, eps) -> GridIndex:
+    """The cell index of ``p`` (np, 3), or of each cloud of ``p`` (G,
+    np, 3), for the radius ``eps``: :func:`grid_index` per cloud,
+    concatenated. Within a registration P and the verify radii are
+    fixed, so the matcher builds each once per run
+    (ops/lcp.py::VerifyIndex) and passes it to every verify call."""
+    clouds = [p] if p.ndim == 2 else list(p)
+    dev = p.device
+    # a named range, so that a profile can count the index's kernels
+    # with the verify's
+    with torch.profiler.record_function("grid_index"):
+        parts = [grid_index(c, eps) for c in clouds if c.shape[0] > 0]
+    sizes = tuple(int(c.shape[0]) for c in clouds)
+    if len(parts) != len(clouds):
+        if parts:
+            raise ValueError("build_index: some clouds are empty")
+        return GridIndex(
+            torch.zeros((0, 4), dtype=torch.float32, device=dev),
+            torch.zeros(0, dtype=torch.int32, device=dev),
+            torch.zeros(len(clouds) + 1, dtype=torch.int32, device=dev),
+            torch.zeros((len(clouds), 7), dtype=torch.float32, device=dev),
+            sizes, float(np.float32(eps)))
+    offs = torch.zeros(len(sizes) + 1, dtype=torch.int32, device=dev)
+    offs[1:] = torch.cumsum(torch.tensor(
+        sizes, dtype=torch.int32), 0).to(dev)
+    return GridIndex(torch.cat([t[0] for t in parts]),
+                     torch.cat([t[1] for t in parts]), offs,
+                     torch.stack([t[2] for t in parts]), sizes,
+                     float(np.float32(eps)))
 
 
 def _query_box(tx, ty, tz, grid, eps: float):
@@ -238,21 +291,15 @@ def walk_ranges(tx, ty, tz, keys, grid, eps):
     return torch.stack(starts, 1), torch.stack(counts, 1)
 
 
-def lcp_min_d2_within_plain(transforms: torch.Tensor, q: torch.Tensor,
-                            p: torch.Tensor, eps) -> torch.Tensor:
-    """Plain PyTorch version of :func:`lcp_min_d2_within`: the same
-    index and query box, walked with ``searchsorted`` over the key
-    columns (:func:`walk_ranges`) and a ragged gather, blocked over the
-    flattened (C * nq) rows. d^2 in the kernel's order, so the result
-    is ``where(lcp_min_d2_plain <= eps2, lcp_min_d2_plain, inf)`` bit
-    for bit."""
+def _walk_plain(transforms, q, pts, keys, grid, eps) -> torch.Tensor:
+    """The plain walk of one cloud's index ``(pts, keys, grid)``:
+    (C, nq) as :func:`lcp_min_d2_within` returns it."""
     c, nq = transforms.shape[0], q.shape[0]
     dev = q.device
     out = torch.full((c * nq,), float("inf"), dtype=torch.float32,
                      device=dev)
-    if c * nq == 0 or p.shape[0] == 0:
+    if c * nq == 0 or pts.shape[0] == 0:
         return out.view(c, nq)
-    pts, keys, grid = grid_index(p, eps)
     tx, ty, tz = (t.reshape(-1) for t in _transformed(transforms, q))
     starts, counts = walk_ranges(tx, ty, tz, keys, grid, eps)
     k = starts.shape[1]
@@ -283,40 +330,100 @@ def lcp_min_d2_within_plain(transforms: torch.Tensor, q: torch.Tensor,
     return torch.where(out <= eps2, out, float("inf")).view(c, nq)
 
 
+def _index_for(p, eps, index):
+    """``index`` checked against ``p`` and ``eps``, or built."""
+    if index is None:
+        return build_index(p, eps)
+    n_sets = 1 if p.ndim == 2 else p.shape[0]
+    if (len(index.sizes) != n_sets
+            or index.eps != float(np.float32(eps))
+            or any(s != p.shape[-2] for s in index.sizes)):
+        raise ValueError(f"lcp_min_d2_within: the index was built for "
+                         f"{len(index.sizes)} clouds of {index.sizes} "
+                         f"points at eps {index.eps}, not {n_sets} of "
+                         f"{p.shape[-2]} at {float(np.float32(eps))}")
+    return index
+
+
+def lcp_min_d2_within_plain(transforms: torch.Tensor, q: torch.Tensor,
+                            p: torch.Tensor, eps,
+                            index: GridIndex | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`lcp_min_d2_within`: the same
+    index and query box, walked with ``searchsorted`` over the key
+    columns (:func:`walk_ranges`) and a ragged gather, blocked over the
+    flattened (C * nq) rows, one pair at a time with the pairs axis.
+    d^2 in the kernel's order, so the result is
+    ``where(lcp_min_d2_plain <= eps2, lcp_min_d2_plain, inf)`` bit for
+    bit."""
+    if q.ndim == 2:
+        if p.shape[0] == 0:
+            return _walk_plain(transforms, q, p, None, None, eps)
+        pts, keys, grid = _index_for(p, eps, index).part(0)
+        return _walk_plain(transforms, q, pts, keys, grid, eps)
+    if p.shape[1] == 0:
+        return torch.full(transforms.shape[:2] + (q.shape[1],),
+                          float("inf"), dtype=torch.float32,
+                          device=q.device)
+    index = _index_for(p, eps, index)
+    return torch.stack([_walk_plain(transforms[g], q[g], *index.part(g),
+                                    eps) for g in range(q.shape[0])])
+
+
 def lcp_min_d2_within(transforms: torch.Tensor, q: torch.Tensor,
-                      p: torch.Tensor, eps) -> torch.Tensor:
+                      p: torch.Tensor, eps,
+                      index: GridIndex | None = None) -> torch.Tensor:
     """(C, nq) f32: the min squared distance of every transformed query
     to P where it is ``<= float32(eps)^2``, ``+inf`` elsewhere (and for
     a non-finite transformed query). Bit for bit
     ``where(lcp_min_d2(...) <= eps2, lcp_min_d2(...), inf)``: a point
     beyond ``eps`` never changes a min below ``eps``, so the kernel
     tests only the points of the cells around each query. Arguments as
-    :func:`lcp_min_d2`, plus the search radius ``eps`` (a number). The
-    index is built on every call (P may be a strided view, and its
-    memory may be reused between calls). CPU tensors take the plain
+    :func:`lcp_min_d2`, plus the search radius ``eps`` (a number).
+
+    Pairs axis: ``transforms`` (G, C, 4, 4), ``q`` (G, nq, 3) and ``p``
+    (G, np, 3) verify G pairs' candidates in one launch and return (G,
+    C, nq), each pair's as its own call would.
+
+    ``index`` is P's cell index for ``eps`` (:func:`build_index`); the
+    caller that verifies the same P many times builds it once. Without
+    it the index is built on this call. CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    dev = _check("lcp_min_d2_within", transforms, q, p)
+    batched = q.ndim == 3
+    if batched:
+        if transforms.ndim != 4 or p.ndim != 3 or len(
+                {transforms.shape[0], q.shape[0], p.shape[0]}) != 1:
+            raise ValueError(
+                f"lcp_min_d2_within: the pairs axis needs transforms (G, "
+                f"C, 4, 4), q (G, nq, 3) and p (G, np, 3), got "
+                f"{tuple(transforms.shape)}, {tuple(q.shape)}, "
+                f"{tuple(p.shape)}")
+        dev = _check("lcp_min_d2_within", transforms.flatten(0, 1),
+                     q.flatten(0, 1), p.flatten(0, 1))
+    else:
+        dev = _check("lcp_min_d2_within", transforms, q, p)
     if dev.type == "cpu":
-        return lcp_min_d2_within_plain(transforms, q, p, eps)
-    transforms, q = transforms.contiguous(), q.contiguous()
-    c, nq, np_ = transforms.shape[0], q.shape[0], p.shape[0]
-    out = torch.empty((c, nq), dtype=torch.float32, device=dev)
-    if c * nq == 0:
+        return lcp_min_d2_within_plain(transforms, q, p, eps, index)
+    n_sets = q.shape[0] if batched else 1
+    per_pair = transforms.shape[-3]
+    nq, np_ = q.shape[-2], p.shape[-2]
+    out = torch.empty(transforms.shape[:-2] + (nq,), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
         return out
     if np_ == 0:
         return out.fill_(float("inf"))
-    # a named range, so that a profile can count the index's kernels
-    # with the verify's
-    with torch.profiler.record_function("grid_index"):
-        pts, keys, grid = grid_index(p, eps)
+    index = _index_for(p, eps, index)
+    transforms, q = transforms.contiguous(), q.contiguous()
     e32 = np.float32(eps)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.lcp_min_d2_within(
-            transforms.data_ptr(), q.data_ptr(), pts.data_ptr(),
-            keys.data_ptr(), grid.data_ptr(), out.data_ptr(), c, nq, np_,
-            float(e32), float(e32 * e32), stream), "lcp_min_d2_within")
+            transforms.data_ptr(), q.data_ptr(), index.pts.data_ptr(),
+            index.keys.data_ptr(), index.offs.data_ptr(),
+            index.grids.data_ptr(), out.data_ptr(), n_sets * per_pair,
+            per_pair, nq, float(e32), float(e32 * e32), stream),
+            "lcp_min_d2_within")
     lcp_min_d2_within.launches += 1
     return out
 

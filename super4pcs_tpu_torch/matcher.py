@@ -6,10 +6,13 @@ PyTorch counterpart of ``super4pcs_tpu.matcher``, the re-architecture of
 
 - each *device step* runs ``bases_per_step`` complete trials — base
   selection, pair extraction, congruent-set join, rigid fit — as an
-  explicit batch (the JAX package's ``vmap`` becomes a batch dimension
-  for selection and fit, and a loop over bases for extraction and
-  join), then scores every surviving candidate with the batched LCP
-  kernel and takes an argmax;
+  explicit batch over a flat trial axis (the JAX package's ``vmap``
+  over bases, and over pairs for parallel/batch.py, becomes a batch
+  dimension: the rowcap engine captures every trial's edge in one
+  kernel launch and sorts every trial's join table in one sort; the
+  dense and allpairs engines loop over trials), then scores every
+  surviving candidate with the batched LCP kernel and takes an argmax
+  per pair;
 - the anytime contract (ref:hpp:236-255) is a host loop around the
   step: wall-clock budget, trial budget and terminate threshold are
   checked between steps, with the same ``stats`` keys and visitor
@@ -26,7 +29,10 @@ What the port leaves out, because it exists only for XLA compile time
 or TPU dispatch latency: the fused K-step dispatch, the background
 escalation compile (escalation here is a synchronous rebuild of the
 step at the wider factor), the two-steps-in-flight pipelining, the phase
-probes and the roofline model. Not ported yet (they raise
+probes and the roofline model. In their place, on the card, one step
+and one refine run before the anytime clock starts (and again, off the
+clock, after an escalation), so the clock does not count the CUDA
+libraries' first calls or the verify's cell indexes. Not ported yet (they raise
 ``NotImplementedError``): the banded engine, the rowcap engine in
 similarity mode (the JAX package's XLA ``approx_max_k`` capture), and
 bases-axis sharding (``mesh``). See ROADMAP.md.
@@ -133,12 +139,19 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
 
     Returns (try_bases, (k_pairs, k_quads, n_cands)), where
     ``try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
-    q_bounds, scale_draws)`` runs one trial per base draw (see
-    ops/select.py); ``q_bounds`` are the Q tile bounds of the capture
-    kernel's tile-pair rejection (``rowcap.reject_bounds``), or None;
-    ``scale_draws`` (similarity mode only) are each base's dense-capture
-    row rotation in [0, nq) and probe-walk rotation in [0, k_pairs),
-    two (B,) tensors.
+    q_bounds, scale_draws)`` runs one trial per base draw of G cloud
+    pairs (the clouds (G, n, .), the draws (G, B, ...), see
+    ops/select.py), over the flat trial axis T = G * B, trial ``t`` on
+    pair ``t // B``; ``q_bounds`` are the Q tile bounds of the capture
+    kernel's tile-pair rejection (``rowcap.reject_bounds``, (G, ...)),
+    or None; ``scale_draws`` (similarity mode only) are each trial's
+    dense-capture row rotation in [0, nq) and probe-walk rotation in
+    [0, k_pairs), two (T,) tensors.
+
+    The rowcap engine runs every trial at once: one capture launch per
+    base edge (K2's trial axis) and one join sort for all T tables. The
+    dense and allpairs engines run their trials one at a time (an
+    allpairs table holds nq^2 rows).
     """
     if opts.bases_per_step is None:
         opts = opts.replace(bases_per_step=resolve_bases_per_step(opts, nq))
@@ -252,7 +265,8 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
 
         def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1,
                          bounds, off):
-            # edge 0 also emits the join hash of every captured slot
+            # every trial's capture in one launch per edge; edge 0 also
+            # emits the join hash of every captured slot
             return rowcap_kernel.extract_pairs_rowcap_both(
                 pos, bpos, eps_pairs, join_row_cap,
                 invariant1=inv1, cell_size=cell_size,
@@ -273,90 +287,131 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
                  else qb_default)
          * congruent.probe_window(dist_thr, cell_size) ** 3) // 8)
 
+    def join_kw(t, q_rots):
+        # the grid join's per-engine arguments (trial t's, or every
+        # trial's with t None)
+        return dict(
+            cell_candidates=opts.cell_candidates,
+            q_budget=opts.join_q_budget,
+            direction_bins=opts.direction_bins,
+            healpix_nside=opts.healpix_nside,
+            cell_size=cell_size, row_cap=join_row_cap,
+            probe_budget=probe_budget,
+            # the strided probe walk only over the raw allpairs
+            # enumeration, whose valid prefix holds the pairs of a
+            # handful of first endpoints
+            allpairs_cols=engine == "allpairs",
+            q_uniform=engine == "allpairs",
+            q_rot=(None if q_rots is None
+                   else q_rots if t is None else q_rots[t]))
+
     def try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
                   q_rgb, q_bounds=None, scale_draws=None):
         ids, inv1, inv2, bvalid = select.select_base(p_pos, diam, *draws)
-        base_pos = p_pos[ids]                            # (B, 4, 3)
-        base_norm = p_norm[ids]
-        base_rgb = p_rgb[ids]
+        n_sets, nb = ids.shape[:2]
+        nt = n_sets * nb
+        dev = q_pos.device
+        gi = torch.arange(n_sets, device=dev)[:, None, None]
+        base_pos = p_pos[gi, ids].reshape(nt, 4, 3)
+        base_norm = p_norm[gi, ids].reshape(nt, 4, 3)
+        base_rgb = p_rgb[gi, ids].reshape(nt, 4, 3)
+        ids, inv1, inv2, bvalid = (ids.reshape(nt, 4), inv1.reshape(nt),
+                                   inv2.reshape(nt), bvalid.reshape(nt))
         # angle between the two base segments (ref:super4pcs.cc:109-111)
         s1 = base_pos[:, 1] - base_pos[:, 0]
         s2 = base_pos[:, 3] - base_pos[:, 2]
         n1 = torch.clamp(torch.linalg.vector_norm(s1, dim=-1), min=1e-30)
         n2 = torch.clamp(torch.linalg.vector_norm(s2, dim=-1), min=1e-30)
         cos_alpha = ((s1 / n1[:, None]) * (s2 / n2[:, None])).sum(-1)
+        offs = q_rots = None
         if est_scale:
             # the MULTISCALE ratio gate of the joins: d1 / d2 of the base
             seg_ratio = n1 / n2
             offs, q_rots = scale_draws
+        gate = (dict(seg_ratio=seg_ratio,
+                     scale_band=geometry.SCALE_RATIO_DEV)
+                if est_scale else {})
+        nq_ = q_pos.shape[1]
+        set_of = torch.arange(nt, device=dev) // nb
 
-        quads_b, qvalid_b, counts_b = [], [], []
-        zero = torch.zeros((), dtype=torch.int64, device=q_pos.device)
-        for b in range(ids.shape[0]):
-            ext = extract_both(q_pos, q_norm, q_rgb, base_pos[b],
-                               base_norm[b], base_rgb[b], inv1[b],
-                               q_bounds, offs[b] if est_scale else None)
-            (pairs1, v1, c1, d1), (pairs2, v2, c2, d2) = ext[0], ext[1]
-            thash = ext[2] if len(ext) > 2 else None
-            gate = (dict(seg_ratio=seg_ratio[b],
-                         scale_band=geometry.SCALE_RATIO_DEV)
-                    if est_scale else {})
-            if dense_join:
-                quads, qvalid, qcount = congruent.find_congruent_quads(
-                    q_pos, pairs1, v1, pairs2, v2, inv1[b], inv2[b],
-                    dist_thr, cos_alpha[b], cone_tol, k_quads,
-                    direction_bins=opts.direction_bins,
-                    healpix_nside=opts.healpix_nside, **gate)
-                qdropped = q_sub = zero
-            else:
-                quads, qvalid, qcount, qdropped, q_sub = \
-                    congruent.find_congruent_quads_grid(
-                        q_pos, pairs1, v1, pairs2, v2, inv1[b], inv2[b],
-                        dist_thr, cos_alpha[b], cone_tol, k_quads,
-                        cell_candidates=opts.cell_candidates,
-                        q_budget=opts.join_q_budget,
+        if engine == "rowcap":
+            (pairs1, v1, c1, d1), (pairs2, v2, c2, d2), thash = \
+                extract_both(q_pos, q_norm, q_rgb, base_pos, base_norm,
+                             base_rgb, inv1, q_bounds, None)
+            quads, qvalid, qcount, qdropped, q_sub = \
+                congruent.find_congruent_quads_grid(
+                    q_pos, pairs1, v1, pairs2, v2, inv1, inv2, dist_thr,
+                    cos_alpha, cone_tol, k_quads, table_hash=thash,
+                    **join_kw(None, q_rots), **gate)
+            counts = torch.stack([c1, c2, qcount, qdropped, d1 + d2,
+                                  q_sub], dim=1)
+        else:
+            quads_b, qvalid_b, counts_b = [], [], []
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            for t in range(nt):
+                g = t // nb
+                ext = extract_both(q_pos[g], q_norm[g], q_rgb[g],
+                                   base_pos[t], base_norm[t], base_rgb[t],
+                                   inv1[t], None,
+                                   offs[t] if est_scale else None)
+                (pairs1, v1, c1, d1), (pairs2, v2, c2, d2) = ext
+                gate_t = (dict(seg_ratio=seg_ratio[t],
+                               scale_band=geometry.SCALE_RATIO_DEV)
+                          if est_scale else {})
+                if dense_join:
+                    quads, qvalid, qcount = congruent.find_congruent_quads(
+                        q_pos[g], pairs1, v1, pairs2, v2, inv1[t], inv2[t],
+                        dist_thr, cos_alpha[t], cone_tol, k_quads,
                         direction_bins=opts.direction_bins,
-                        healpix_nside=opts.healpix_nside,
-                        cell_size=cell_size, row_cap=join_row_cap,
-                        table_hash=thash, probe_budget=probe_budget,
-                        # the strided probe walk only over the raw
-                        # allpairs enumeration, whose valid prefix holds
-                        # the pairs of a handful of first endpoints
-                        allpairs_cols=engine == "allpairs",
-                        q_uniform=engine == "allpairs",
-                        q_rot=q_rots[b] if est_scale else None, **gate)
-            quads_b.append(quads)
-            qvalid_b.append(qvalid)
-            counts_b.append(torch.stack([c1, c2, qcount, qdropped,
-                                         d1 + d2, q_sub]))
-        quads = torch.stack(quads_b)                     # (B, Kq, 4)
-        qvalid = torch.stack(qvalid_b) & bvalid[:, None]
+                        healpix_nside=opts.healpix_nside, **gate_t)
+                    qdropped = q_sub = zero
+                else:
+                    quads, qvalid, qcount, qdropped, q_sub = \
+                        congruent.find_congruent_quads_grid(
+                            q_pos[g], pairs1, v1, pairs2, v2, inv1[t],
+                            inv2[t], dist_thr, cos_alpha[t], cone_tol,
+                            k_quads, **join_kw(t, q_rots), **gate_t)
+                quads_b.append(quads)
+                qvalid_b.append(qvalid)
+                counts_b.append(torch.stack([c1, c2, qcount, qdropped,
+                                             d1 + d2, q_sub]))
+            quads = torch.stack(quads_b)                 # (T, Kq, 4)
+            qvalid = torch.stack(qvalid_b)
+            counts = torch.stack(counts_b)
+        qvalid = qvalid & bvalid[:, None]
 
-        cand = q_pos[quads]                              # (B, Kq, 4, 3)
+        # each trial's quads index its own pair's Q
+        cand = q_pos.reshape(-1, 3)[quads + (set_of * nq_)[:, None, None]]
         centroid1 = base_pos[:, :3].mean(dim=1)          # ref:hpp:385
         centroid2 = cand[:, :, :3].mean(dim=2)           # ref:hpp:415-417
         transform, rms, tvalid = geometry.batched_rigid_fit(
             base_pos, cand, centroid1, centroid2, max_angle_rad,
             estimate_scale=est_scale)
         cvalid = qvalid & tvalid & (rms >= 0) & (rms < rms_gate)
-        # telemetry row per base: exact pre-cap pair counts, exact
+        # telemetry row per trial: exact pre-cap pair counts, exact
         # pre-cap quad count, per-cell join drops, pairs dropped from
         # the buffers, and the Q-side probe-subsample volume
         return dict(transform=transform, cvalid=cvalid,
                     centroid1=centroid1, centroid2=centroid2,
-                    ids=ids, quads=quads, counts=torch.stack(counts_b))
+                    ids=ids, quads=quads, counts=counts)
 
     return try_bases, (k_pairs, k_quads, n_cands)
 
 
 def build_step(opts: Options, nq: int, cone_tol: float):
-    """Build the RANSAC device step.
+    """Build the RANSAC device step over G cloud pairs.
 
     ``step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
-    q_bounds=None)`` draws ``bases_per_step`` bases from the generator, runs their
-    trials, compacts the valid candidates, verifies them
-    (``lcp_scores_two_stage``) and returns the best one's dict of
-    tensors (the JAX package's step outputs).
+    q_bounds=None, p_index=None)`` takes G pairs' clouds (``p_*`` (G,
+    np, .), ``q_*`` (G, nq, .), ``diam`` (G,) or a number), draws
+    ``bases_per_step`` bases per pair from the generator (pair by pair,
+    so G = 1 draws what a single-pair step draws), runs their trials
+    (see :func:`_build_try_bases`), compacts each pair's valid
+    candidates, verifies them (``lcp_scores_two_stage``, one launch per
+    stage for every pair, against ``p_index``, the run's
+    ``lcp.VerifyIndex`` of ``p_pos``) and returns each pair's best
+    one: the JAX package's step outputs with a leading G (its
+    pairs-axis ``vmap``).
 
     Returns (step, (k_pairs, k_quads, n_cands)).
     """
@@ -371,64 +426,82 @@ def build_step(opts: Options, nq: int, cone_tol: float):
     rank_delta = delta * opts.search_delta_factor
 
     def step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
-             q_bounds=None):
-        draws = select.draw_base_indices(gen, p_pos.shape[0], b,
-                                         opts.n_triangle_trials)
-        # similarity mode's two rotations per base, drawn after the
-        # base draws so a rigid step's draws are the same without them
-        scale_draws = ((torch.randint(0, nq, (b,), generator=gen,
-                                      device=gen.device),
-                        torch.randint(0, k_pairs, (b,), generator=gen,
-                                      device=gen.device))
-                       if opts.estimate_scale else None)
+             q_bounds=None, p_index=None):
+        n_sets = p_pos.shape[0]
+        draws, scale_draws = [], []
+        for _ in range(n_sets):
+            draws.append(select.draw_base_indices(
+                gen, p_pos.shape[1], b, opts.n_triangle_trials))
+            # similarity mode's two rotations per base, drawn after the
+            # pair's base draws so a rigid step's draws are the same
+            # without them
+            if opts.estimate_scale:
+                scale_draws.append((
+                    torch.randint(0, nq, (b,), generator=gen,
+                                  device=gen.device),
+                    torch.randint(0, k_pairs, (b,), generator=gen,
+                                  device=gen.device)))
+        draws = tuple(torch.stack(d) for d in zip(*draws))
+        scale_draws = (tuple(torch.cat(d) for d in zip(*scale_draws))
+                       if scale_draws else None)
         tb = try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
                        q_rgb, q_bounds, scale_draws)
-        flat_t = tb["transform"].reshape(-1, 4, 4)
-        flat_v = tb["cvalid"].reshape(-1)
-        # compact the valid candidates before the (expensive) scoring
+        flat_t = tb["transform"].reshape(n_sets, -1, 4, 4)
+        flat_v = tb["cvalid"].reshape(n_sets, -1)
+        # compact each pair's valid candidates before the (expensive)
+        # scoring
         n_cands_local = max(128, n_cands)
-        if n_cands_local >= flat_v.shape[0]:
-            idx = torch.arange(flat_v.shape[0], device=flat_v.device)
+        if n_cands_local >= flat_v.shape[1]:
+            idx = torch.arange(flat_v.shape[1], device=flat_v.device) \
+                .expand(n_sets, -1)
             live = flat_v
-            n_valid = flat_v.sum()
+            n_valid = flat_v.sum(dim=1)
             cand_t = flat_t
             cands_dropped = torch.zeros_like(n_valid)
         else:
             idx, live, n_valid = masked_indices(flat_v, n_cands_local)
-            cand_t = flat_t[idx]
+            cand_t = lcp._rows(flat_t, idx)
             cands_dropped = torch.clamp(n_valid - n_cands_local, min=0)
         if opts.verify_top_k > 0:
             scores, sel = lcp.lcp_scores_two_stage(
                 cand_t, q_pos, p_pos, rank_delta,
                 coarse_q=opts.coarse_q, coarse_p=opts.coarse_p,
-                top_k=opts.verify_top_k, live=live)
-            live = live[sel]
-            cand_t = cand_t[sel]
-            idx = idx[sel]
+                top_k=opts.verify_top_k, live=live, index=p_index)
+            live = lcp._rows(live, sel)
+            cand_t = lcp._rows(cand_t, sel)
+            idx = lcp._rows(idx, sel)
         else:
-            scores = lcp.lcp_scores(cand_t, q_pos, p_pos, rank_delta)
+            scores = lcp.lcp_scores(
+                cand_t, q_pos, p_pos, rank_delta,
+                None if p_index is None else p_index.get(1, rank_delta))
         scores = torch.where(live, scores, -1.0)
 
-        best = torch.argmax(scores)
+        gi = torch.arange(n_sets, device=scores.device)
+        best = torch.argmax(scores, dim=1)
+        best_t = cand_t[gi, best]
         if rank_delta != delta:
-            exact = lcp.lcp_score_single(cand_t[best], q_pos, p_pos, delta)
-            exact = torch.where(scores[best] >= 0, exact, -1.0)
+            exact = lcp.lcp_scores(
+                best_t[:, None], q_pos, p_pos, delta,
+                None if p_index is None else p_index.get(1, delta))[:, 0]
+            exact = torch.where(scores[gi, best] >= 0, exact, -1.0)
         else:
-            exact = scores[best]
-        flat_i = idx[best]
+            exact = scores[gi, best]
+        flat_i = idx[gi, best]
         bi = flat_i // k_quads
         qi = flat_i % k_quads
         return dict(
             lcp=exact,
-            rank_lcp=scores[best],
-            transform=cand_t[best],
-            qcentroid1=tb["centroid1"][bi],
-            qcentroid2=tb["centroid2"][bi, qi],
-            base_ids=tb["ids"][bi],
-            congruent_ids=tb["quads"][bi, qi],
+            rank_lcp=scores[gi, best],
+            transform=best_t,
+            qcentroid1=tb["centroid1"].reshape(n_sets, b, 3)[gi, bi],
+            qcentroid2=tb["centroid2"].reshape(n_sets, b, k_quads, 3)[
+                gi, bi, qi],
+            base_ids=tb["ids"].reshape(n_sets, b, 4)[gi, bi],
+            congruent_ids=tb["quads"].reshape(n_sets, b, k_quads, 4)[
+                gi, bi, qi],
             n_congruent=n_valid,
             cands_dropped=cands_dropped,
-            pair_counts=tb["counts"],
+            pair_counts=tb["counts"].reshape(n_sets, b, 6),
         )
 
     return step, (k_pairs, k_quads, n_cands)
@@ -739,32 +812,52 @@ class Match4PCSBase:
         self._base_ids = np.zeros(4, dtype=np.int64)
         self._congruent_ids = np.zeros(4, dtype=np.int64)
 
+        # P's cell indexes of the verify, built once per run and radius
+        self._p_index = lcp.VerifyIndex(self._d_p_pos)
         self._build_step()
         rowcap = (resolve_pair_engine(self._opts_eff(), len(sampled_q))
                   == "rowcap")
         # the Q tile bounds of the capture's tile-pair rejection: Q is
         # fixed for the run, so they are computed once
-        self._q_bounds = (rowcap_kernel.reject_bounds(self._d_q_pos)
+        self._q_bounds = (rowcap_kernel.reject_bounds(self._d_q_pos[None])
                           if rowcap and opts.rowcap_tile_reject
                           and dev.type == "cuda" else None)
-        # build the CUDA kernels of this engine before any timed phase
-        # (the analog of the JAX package's off-clock compile)
+        self._gen = torch.Generator(device=dev)
+        # build the CUDA kernels of this engine, and run one step and
+        # one refine whose outputs are thrown away, before any timed
+        # phase: the analog of the JAX package's off-clock compile (the
+        # CUDA libraries' first calls and the verify's cell indexes)
         tc = time.perf_counter()
         if dev.type == "cuda":
             lcp_kernel._lib()
             if rowcap:
                 rowcap_kernel._lib()
+            self._warm()
         self._stats["compile_seconds"] = time.perf_counter() - tc
 
         # initial verification of the identity transform (ref:hpp:201)
         tv = time.perf_counter()
         self._best_lcp = float(lcp.lcp_score_single(
             torch.eye(4, dtype=torch.float32, device=dev), self._d_q_pos,
-            self._d_p_pos, opts.delta))
+            self._d_p_pos, opts.delta,
+            self._p_index.get(1, opts.delta)))
         self._stats["initial_verify_seconds"] = time.perf_counter() - tv
         self._initial_lcp = self._best_lcp
         self.logger.verbose("Initial LCP: ", self._best_lcp)
-        self._gen = torch.Generator(device=dev)
+
+    def _warm(self):
+        """On the card: one step and (with refine on) one refine of the
+        current transform, their outputs thrown away. It touches no
+        best-so-far, counter, trial count or visitor call, and the run's
+        draws do not move (each step reseeds the generator)."""
+        if self.device.type != "cuda":
+            return
+        self._gen.manual_seed(_step_seed(self.options.random_seed, -1))
+        self._step_fn(self._gen, self._max_base_diameter,
+                      *self._step_args())
+        if self._refine_active():
+            self._refine(self._transform)
+        torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # device step: B complete RANSAC trials + batched verify
@@ -791,15 +884,20 @@ class Match4PCSBase:
                                          self._cone_mode)
         self._k_pairs, self._k_quads, self._n_cands = caps
 
+    def _step_args(self):
+        """The step's cloud arguments: this run's one pair (G = 1)."""
+        return (self._d_p_pos[None], self._d_p_norm[None],
+                self._d_p_rgb[None], self._d_q_pos[None],
+                self._d_q_norm[None], self._d_q_rgb[None], self._q_bounds,
+                self._p_index)
+
     def _run_step(self, step_idx: int) -> dict:
         """One device step, its outputs fetched to the host."""
         self._gen.manual_seed(_step_seed(self.options.random_seed,
                                          step_idx))
-        out = self._step_fn(
-            self._gen, self._max_base_diameter,
-            self._d_p_pos, self._d_p_norm, self._d_p_rgb,
-            self._d_q_pos, self._d_q_norm, self._d_q_rgb, self._q_bounds)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        out = self._step_fn(self._gen, self._max_base_diameter,
+                            *self._step_args())
+        return {k: v[0].cpu().numpy() for k, v in out.items()}
 
     # ------------------------------------------------------------------
     # host anytime loop (mirrors Perform_N_steps, ref:hpp:208-274)
@@ -894,7 +992,10 @@ class Match4PCSBase:
                 remaining = opts.max_time_seconds * (1.0 - fraction_time)
                 if (self._esc_enabled
                         and remaining > 0.05 * opts.max_time_seconds):
-                    self._escalate()
+                    # the new step's warm-up runs off the clock
+                    warm = self._escalate()
+                    t0 += warm
+                    t_last += warm
                     # escalated steps are slower; the EMA re-learns
                     step_ema *= 3.0
                     continue
@@ -918,9 +1019,12 @@ class Match4PCSBase:
         return float(opts.search_escalation_factor
                      ** (self._esc_stage + 1))
 
-    def _escalate(self):
+    def _escalate(self) -> float:
         """Rebuild the step at the next rung's search factor and extend
-        the trial budget by another estimate."""
+        the trial budget by another estimate. On the card the new step
+        is warmed as in ``_init`` (its rank radius has its own verify
+        index); returns the seconds of that warm-up, which the anytime
+        clock leaves out."""
         esc = self._esc_next_factor()
         self.logger.verbose("Trial estimate exhausted at LCP ",
                             self._best_lcp,
@@ -931,10 +1035,14 @@ class Match4PCSBase:
         self._esc_enabled = (self._esc_next_factor() > self._search_sf
                              and self._refine_active())
         self._build_step()
+        tw = time.perf_counter()
+        self._warm()
+        warm = time.perf_counter() - tw
         self._budget_mult += 1
         self._stats["escalation_compile_seconds"] = (
             time.perf_counter() - t0)
         self._stats["escalated_to"] = esc
+        return warm
 
     # ------------------------------------------------------------------
 
@@ -950,7 +1058,8 @@ class Match4PCSBase:
             estimate_scale=self.options.estimate_scale)
         scores = lcp.lcp_scores(torch.stack([cur_t, refined]),
                                 self._d_q_pos, self._d_p_pos,
-                                self.options.delta)
+                                self.options.delta,
+                                self._p_index.get(1, self.options.delta))
         return refined.cpu().numpy(), scores.cpu().numpy()
 
     def _refine_active(self) -> bool:
@@ -1026,9 +1135,13 @@ class Match4PCSBase:
         self._esc_stage = self._budget_mult - 1
         sf = float(state.get("search_sf", self._search_sf))
         if sf != self._search_sf:
-            # taken post-escalation: rebuild at its factor
+            # taken post-escalation: rebuild at its factor (and warm it,
+            # off the clock)
             self._search_sf = sf
             self._build_step()
+            tw = time.perf_counter()
+            self._warm()
+            self._stats["compile_seconds"] += time.perf_counter() - tw
         self._initial_lcp = float(state.get("initial_lcp",
                                             self._initial_lcp))
         self._transform = state["transform"]

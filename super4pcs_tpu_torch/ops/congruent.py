@@ -189,6 +189,19 @@ def _wrap32(x):
     return torch.where(x >= 1 << 31, x - (1 << 32), x)
 
 
+def _take(table, idx):
+    """``table[t, idx[t, ...]]`` for a (T, K) table and (T, ...) indices."""
+    return torch.gather(table, 1, idx.reshape(idx.shape[0], -1)) \
+        .view(idx.shape)
+
+
+def _per_trial(v, nt: int, dev, dtype=torch.float32):
+    """(T,) values of a per-trial argument (a number or a tensor of one
+    value is shared by every trial)."""
+    v = torch.as_tensor(v, dtype=dtype, device=dev).reshape(-1)
+    return v.expand(nt) if v.numel() == 1 else v
+
+
 def find_congruent_quads_grid(
     pos, pairs1, valid1, pairs2, valid2, invariant1, invariant2,
     distance_threshold, base_cos_alpha, cone_cos_tolerance,
@@ -199,7 +212,8 @@ def find_congruent_quads_grid(
     table_hash=None, allpairs_cols: bool = False, q_uniform: bool = False,
     q_rot=None, seg_ratio=None, scale_band: float = -1.0,
 ):
-    """Output-sensitive congruent-set join via a sorted spatial hash.
+    """Output-sensitive congruent-set join via a sorted spatial hash, for
+    one trial or for T trials at once.
 
     The first pair set's invariant points are hashed into cells of
     ``cell_size`` (default ``2 * distance_threshold``) and sorted by
@@ -217,6 +231,15 @@ def find_congruent_quads_grid(
     ``q_budget`` bounds the valid second-side pairs probed (default all,
     up to 8192); ``probe_budget`` compacts the probes that hit a
     non-empty cell before the candidate gather.
+
+    Trial axis (the JAX package's ``vmap`` over a step's bases): with
+    ``valid1`` (T, K1) every table, mask and hash gains a leading T,
+    ``pos`` is (G, n, 3) with trial ``t`` on set ``t // (T // G)``, and
+    ``invariant1``, ``invariant2``, ``base_cos_alpha``, ``seg_ratio``
+    and ``q_rot`` may be (T,) tensors. All T tables go through one sort
+    on the int64 key ``(t << 32) | (group + 2^31)``, which orders each
+    trial's groups as their int32 values do; caps and counters stay per
+    trial, and each trial's outputs equal its own call's.
 
     Range search: each probe's cell range is found with
     ``torch.searchsorted`` at full depth. The JAX package seeds a
@@ -246,10 +269,17 @@ def find_congruent_quads_grid(
     Returns (quads (capacity, 4) int64, valid, count, dropped,
     q_subsampled): ``dropped`` counts per-cell cap and probe-budget
     drops, ``q_subsampled`` the second-side pairs beyond the budget (in
-    probe units).
+    probe units). With the trial axis: (T, capacity, 4), (T, capacity)
+    and (T,) counters.
     """
     if allpairs_cols and row_cap is None:
         raise ValueError("allpairs_cols requires row_cap")
+    single = valid1.ndim == 1
+    if single:
+        pos = pos[None]
+        pairs1, valid1, pairs2, valid2, table_hash = (
+            None if t is None else t[None]
+            for t in (pairs1, valid1, pairs2, valid2, table_hash))
     dev = pos.device
     r = distance_threshold
     cell = cell_size if cell_size is not None else 2.0 * r
@@ -258,38 +288,52 @@ def find_congruent_quads_grid(
     cell_t = torch.full((), cell, dtype=torch.float32, device=dev)
     w = probe_window(r, cell)
     n_probe = w * w * w
-    k1 = valid1.shape[0]
-    k2 = valid2.shape[0]
-    n = pos.shape[0]
+    nt, k1 = valid1.shape
+    k2 = valid2.shape[1]
+    n = pos.shape[1]
     L = cell_candidates
+    tt = torch.arange(nt, device=dev)
+    # trial t reads the points of its set: flat point ids offset by
+    # the set's start
+    off = (tt // (nt // pos.shape[0])) * n
+    px = [pos[..., c].reshape(-1) for c in range(3)]
+
+    inv1 = _per_trial(invariant1, nt, dev)
+    inv2 = _per_trial(invariant2, nt, dev)
+
+    def bcast(v, ndim):
+        # a (T,) per-trial value against (T, ...) operands
+        return v.view((nt,) + (1,) * (ndim - 1))
 
     if allpairs_cols:
         cols1 = rows1 = None
-    elif pairs1.ndim == 1:
+    elif pairs1.ndim == 2:
         if row_cap is None:
             raise ValueError("1-D pairs require the row_cap layout")
         cols1 = pairs1
         rows1 = None
     else:
-        cols1 = pairs1[:, 1]
-        rows1 = pairs1[:, 0]
+        cols1 = pairs1[..., 1]
+        rows1 = pairs1[..., 0]
 
     def table_rows(t):
         if rows1 is None:
             return torch.clamp(t // row_cap, max=n - 1)
-        return rows1[t]
+        return _take(rows1, t)
 
     def table_cols(t):
-        return t % row_cap if allpairs_cols else cols1[t]
+        return t % row_cap if allpairs_cols else _take(cols1, t)
 
     def e1_components(rows, cols):
-        """Invariant-point components of table pairs (rows, cols):
-        (a, b, a + inv1 * (b - a)) per coordinate."""
+        """Invariant-point components of table pairs (rows, cols) of
+        shape (T, ...): (a, b, a + inv1 * (b - a)) per coordinate."""
+        o = bcast(off, rows.ndim)
+        i1 = bcast(inv1, rows.ndim)
         out = []
         for c in range(3):
-            ac = pos[rows, c]
-            bc = pos[cols, c]
-            out.append((ac, bc, ac + invariant1 * (bc - ac)))
+            ac = px[c][rows + o]
+            bc = px[c][cols + o]
+            out.append((ac, bc, ac + i1 * (bc - ac)))
         return out
 
     if table_hash is not None:
@@ -305,14 +349,14 @@ def find_congruent_quads_grid(
         cols = torch.clamp(torch.arange(row_cap, device=dev), max=n - 1)
         e1c = []
         for c in range(3):
-            ac = pos[rows, c][:, None]
-            bc = pos[cols, c][None, :]
-            e1c.append((ac + invariant1 * (bc - ac)).reshape(-1))
+            ac = px[c][rows[None, :] + off[:, None]][:, :, None]
+            bc = px[c][cols[None, :] + off[:, None]][:, None, :]
+            e1c.append((ac + bcast(inv1, 3) * (bc - ac)).reshape(nt, -1))
         h1 = torch.where(valid1, cell_hash_of(e1c, cell_t).long(), SENT)
         del e1c
     else:
         e1c = [e for (_, _, e) in e1_components(
-            table_rows(torch.arange(k1, device=dev)), cols1)]
+            table_rows(torch.arange(k1, device=dev).expand(nt, k1)), cols1)]
         h1 = torch.where(valid1, cell_hash_of(e1c, cell_t).long(), SENT)
 
     # Q-side budget: the first qb valid second-side pairs, or (q_uniform)
@@ -322,113 +366,137 @@ def find_congruent_quads_grid(
         stride = max(k2 // qb, 1)
         while math.gcd(stride, k2) != 1:
             stride += 1
-        rot = (0 if q_rot is None
-               else torch.as_tensor(q_rot, device=dev).long())
+        rot = (torch.zeros(nt, dtype=torch.int64, device=dev)
+               if q_rot is None else _per_trial(q_rot, nt, dev, torch.int64))
         sel2 = torch.remainder(
-            torch.arange(qb, device=dev) * stride + rot, k2)
-        sel2_valid = valid2[sel2]
-        n2 = valid2.sum()
+            torch.arange(qb, device=dev)[None, :] * stride + rot[:, None],
+            k2)
+        sel2_valid = _take(valid2, sel2)
+        n2 = valid2.sum(dim=1)
     else:
         sel2, sel2_valid, n2 = masked_indices(valid2, qb)
     if allpairs_cols and pairs2 is None:
         pairs2b = torch.stack([sel2 // row_cap, sel2 % row_cap], dim=-1)
-    elif pairs2.ndim == 1:
-        pairs2b = torch.stack([sel2 // row_cap, pairs2[sel2]], dim=-1)
+    elif pairs2.ndim == 2:
+        pairs2b = torch.stack([sel2 // row_cap, _take(pairs2, sel2).long()],
+                              dim=-1)
     else:
-        pairs2b = pairs2[sel2]                                 # (QB, 2)
-    a2 = pos[pairs2b[:, 0]]
-    b2 = pos[pairs2b[:, 1]]
-    e2 = a2 + invariant2 * (b2 - a2)                           # (QB, 3)
+        pairs2b = torch.gather(
+            pairs2, 1, sel2[..., None].expand(-1, -1, 2))      # (T, QB, 2)
+    o2 = off[:, None]
+    a2 = torch.stack([px[c][pairs2b[..., 0] + o2] for c in range(3)], -1)
+    b2 = torch.stack([px[c][pairs2b[..., 1] + o2] for c in range(3)], -1)
+    e2 = a2 + bcast(inv2, 3) * (b2 - a2)                       # (T, QB, 3)
 
     # w^3 window cells per query; [group, group + 2) key ranges
-    base_cell = torch.floor((e2 - r) / cell_t).long()          # (QB, 3)
-    probe = base_cell[:, None, :] + _window_offsets(w, dev)
-    hq = _cell_hash(probe).reshape(-1)                         # (QB*w^3,)
+    base_cell = torch.floor((e2 - r) / cell_t).long()          # (T, QB, 3)
+    probe = base_cell[:, :, None, :] + _window_offsets(w, dev)
+    hq = _cell_hash(probe).reshape(nt, -1)                     # (T, QB*w^3)
 
-    # sort the table by its group key (cell hash with the low bit
-    # cleared: merges cells h and h^1 — a superset, removed by the exact
-    # distance mask like any other collision)
-    group1 = h1 & ~1
-    sk, order = torch.sort(group1, stable=True)
+    # sort every trial's table by its group key (cell hash with the low
+    # bit cleared: merges cells h and h^1 — a superset, removed by the
+    # exact distance mask like any other collision), all trials in one
+    # sort: the key (t << 32) | (group + 2^31) keeps the trials apart and
+    # orders each one's groups as their int32 values do
+    tkey = (tt << 32)[:, None]
+    sk, order = torch.sort((tkey | ((h1 & ~1) + (1 << 31))).reshape(-1),
+                           stable=True)
+    order = order.view(nt, k1) - tt[:, None] * k1              # local ids
+    start = tt[:, None] * k1
+
+    def search(group):
+        # positions in the trial's own sorted table of int32-valued keys
+        return (torch.searchsorted(sk, tkey | (group + (1 << 31)))
+                - start)
+
     groupq = hq & ~1
     # the sentinel zone (invalid rows, hash int32-max) is never probed:
     # both range ends are clamped to its start
-    slo = torch.searchsorted(
-        sk, torch.full((1,), 2147483646, dtype=sk.dtype, device=dev))
-    lo_all = torch.clamp(torch.searchsorted(sk, groupq), max=slo)
+    slo = search(torch.full((nt, 1), 2147483646, dtype=torch.int64,
+                            device=dev))
+    lo_all = torch.minimum(search(groupq), slo)
     # a cell in the top group wraps to an empty range (as in the JAX
     # package's int32 arithmetic)
-    hi_all = torch.clamp(torch.searchsorted(sk, _wrap32(groupq + 2)),
-                         max=slo)
+    hi_all = torch.minimum(search(_wrap32(groupq + 2)), slo)
 
-    pvalid = sel2_valid[:, None].expand(qb, n_probe).reshape(-1)
+    pvalid = sel2_valid[:, :, None].expand(nt, qb, n_probe).reshape(nt, -1)
     counts = torch.where(pvalid, torch.clamp(hi_all - lo_all, min=0), 0)
     hi_c = torch.where(pvalid, hi_all, lo_all)
     lo_c = lo_all
-    total_cells = counts.sum()
+    total_cells = counts.sum(dim=1)
 
     if probe_budget is not None:
         pmask = (hi_c > lo_c) & pvalid
         psel, psv, _ = masked_indices(pmask, probe_budget)
-        lo_c = lo_c[psel]
-        hi_c = torch.where(psv, hi_c[psel], lo_c)
+        lo_c = _take(lo_c, psel)
+        hi_c = torch.where(psv, _take(hi_c, psel), lo_c)
         qi = psel // n_probe                           # e2 row
         pvalid = psv
-        counts = torch.where(psv, counts[psel], 0)
-        kept_cells = counts.sum()
+        counts = torch.where(psv, _take(counts, psel), 0)
+        kept_cells = counts.sum(dim=1)
     else:
-        qi = torch.arange(qb * n_probe, device=dev) // n_probe
+        qi = (torch.arange(qb * n_probe, device=dev) // n_probe) \
+            .expand(nt, -1)
         kept_cells = total_cells
+    pb = qi.shape[1]
 
-    # up to L sorted-order slots per probe, laid out (L, PB)
-    slot = lo_c[None, :] + torch.arange(L, device=dev)[:, None]
-    in_cell = (slot < hi_c[None, :]) & pvalid[None, :]
+    # up to L sorted-order slots per probe, laid out (T, L, PB)
+    slot = lo_c[:, None, :] + torch.arange(L, device=dev)[None, :, None]
+    in_cell = (slot < hi_c[:, None, :]) & pvalid[:, None, :]
     slot = torch.clamp(slot, 0, k1 - 1)
-    orid = torch.clamp(order[slot], max=k1 - 1)               # (L, PB)
+    orid = torch.clamp(_take(order, slot), max=k1 - 1)       # (T, L, PB)
     trow = table_rows(orid)
     tcol = table_cols(orid)
 
     # exact validation: invariant-point distance, then the direction
     # filter
-    e2_c = e2[qi].T                                           # (3, PB)
+    e2_c = [_take(e2[..., c], qi)[:, None, :] for c in range(3)]
     g = e1_components(trow, tcol)
-    dd = [ec - e2_c[c][None, :] for c, (_, _, ec) in enumerate(g)]
+    dd = [ec - e2_c[c] for c, (_, _, ec) in enumerate(g)]
     d2 = (dd[0] * dd[0] + dd[1] * dd[1]) + dd[2] * dd[2]
     mask = in_cell & (d2 <= r * r)
 
     if cone_cos_tolerance >= 0 or scale_band >= 0:
-        d2v = b2 - a2
-        dxc = [bc - ac for (ac, bc, _) in g]                  # (L, PB) x3
+        d2v = b2 - a2                                         # (T, QB, 3)
+        dxc = [bc - ac for (ac, bc, _) in g]                  # (T, L, PB)
         n1g = torch.clamp(torch.sqrt(
             (dxc[0] * dxc[0] + dxc[1] * dxc[1]) + dxc[2] * dxc[2]),
             min=1e-30)
     if scale_band >= 0:
-        rr = seg_ratio * _norm3(d2v)[qi][None, :] / n1g        # (L, PB)
+        ratio = bcast(_per_trial(seg_ratio, nt, dev), 3)
+        rr = ratio * _take(_norm3(d2v), qi)[:, None, :] / n1g
         mask &= (rr - 1.0).abs() <= scale_band
     if cone_cos_tolerance >= 0:
-        dir2 = d2v / torch.clamp(_norm3(d2v), min=1e-30)[:, None]
+        cos_a = _per_trial(base_cos_alpha, nt, dev)
+        dir2 = d2v / torch.clamp(_norm3(d2v), min=1e-30)[..., None]
         if direction_bins == "healpix":
-            circ = healpix_circle_pixels(dir2, base_cos_alpha,
-                                         healpix_nside)
+            circ = healpix_circle_pixels(
+                dir2.reshape(-1, 3),
+                cos_a[:, None].expand(nt, qb).reshape(-1, 1, 1),
+                healpix_nside).view(nt, qb, -1)
             pix_cand = _healpix.ang2pix_ring(
                 healpix_nside, dxc[2] / n1g, torch.atan2(dxc[1], dxc[0]))
-            mask &= _healpix_membership(pix_cand, circ[qi][None])
+            circ_q = torch.gather(
+                circ, 1, qi[..., None].expand(-1, -1, circ.shape[2]))
+            mask &= _healpix_membership(pix_cand, circ_q[:, None])
         else:
-            d2q = dir2[qi]                                    # (PB, 3)
-            cos12 = ((dxc[0] * d2q[None, :, 0] + dxc[1] * d2q[None, :, 1])
-                     + dxc[2] * d2q[None, :, 2]) / n1g
-            mask &= (cos12 - base_cos_alpha).abs() <= cone_cos_tolerance
+            d2q = [_take(dir2[..., c], qi)[:, None, :] for c in range(3)]
+            cos12 = ((dxc[0] * d2q[0] + dxc[1] * d2q[1])
+                     + dxc[2] * d2q[2]) / n1g
+            mask &= (cos12 - bcast(cos_a, 3)).abs() <= cone_cos_tolerance
 
-    sel, valid, count = masked_indices_2d(mask, capacity)
-    orid_sel = orid.reshape(-1)[sel]
+    sel, valid, count = masked_indices(mask.reshape(nt, -1), capacity)
+    orid_sel = _take(orid.reshape(nt, -1), sel)
     if rows1 is None:
-        q1 = torch.stack([orid_sel // row_cap, table_cols(orid_sel)],
-                         dim=-1)
+        q1 = torch.stack([orid_sel // row_cap,
+                          table_cols(orid_sel).long()], dim=-1)
     else:
-        q1 = pairs1[orid_sel]
-    q2 = pairs2b[qi[sel % qi.shape[0]]]
-    quads = torch.cat([q1, q2], dim=-1)
-    dropped = (torch.clamp(counts - L, min=0).sum()
+        q1 = torch.gather(pairs1, 1, orid_sel[..., None].expand(-1, -1, 2))
+    q2 = torch.gather(pairs2b, 1,
+                      _take(qi, sel % pb)[..., None].expand(-1, -1, 2))
+    quads = torch.cat([q1.long(), q2.long()], dim=-1)
+    dropped = (torch.clamp(counts - L, min=0).sum(dim=1)
                + total_cells - kept_cells)
     q_subsampled = n_probe * torch.clamp(n2 - qb, min=0)
-    return quads, valid, count, dropped, q_subsampled
+    out = (quads, valid, count, dropped, q_subsampled)
+    return tuple(o[0] for o in out) if single else out

@@ -155,6 +155,11 @@ def _cross(a, b):
                        dim=-1)
 
 
+def _sum3(terms):
+    """``(terms[0] + terms[1]) + terms[2]``."""
+    return (terms[0] + terms[1]) + terms[2]
+
+
 def batched_rigid_fit(ref_quad, cand_quads, centroid1, centroid2,
                       max_angle_rad: float, estimate_scale: bool = False):
     """Fit rigid transforms aligning each candidate quad onto its base.
@@ -212,12 +217,19 @@ def batched_rigid_fit(ref_quad, cand_quads, centroid1, centroid2,
     rot_q, ok_q = frame(cand_quads[:, :, 0], cand_quads[:, :, 1],
                         cand_quads[:, :, 2])                # (B, C, 3, 3)
 
-    # R = Rp^T Rq  (ref:cc:449)
-    rotation = torch.einsum('bij,bcik->bcjk', rot_p, rot_q)
+    # R = Rp^T Rq  (ref:cc:449). The 3-term sums of these small products
+    # are written out in a fixed order, ((x0 y0 + x1 y1) + x2 y2): a
+    # batched matrix product may pick its kernel, and so its rounding,
+    # by the batch's size, and a trial's fit must not depend on which
+    # other trials (or pairs) share its step.
+    rp = rot_p[:, None]                                   # (B, 1, 3, 3)
+    rotation = _sum3([rp[..., i, :, None] * rot_q[..., i, None, :]
+                      for i in range(3)])                 # (B, C, 3, 3)
 
     # Orthogonality gate exactly as written in the reference:
     # diag(R @ R) - 1 > eps  (ref:cc:453 uses rotation*rotation).
-    rr_diag = torch.einsum('bcij,bcji->bci', rotation, rotation)
+    rr_diag = _sum3([rotation[..., :, j] * rotation[..., j, :]
+                     for j in range(3)])
     ortho_ok = torch.all(rr_diag - 1.0 <= eps, dim=-1)
 
     # Euler-angle gate (ref:cc:457-472), active when max_angle >= 0.
@@ -234,14 +246,16 @@ def batched_rigid_fit(ref_quad, cand_quads, centroid1, centroid2,
 
     # RMS over the first three points (ref:cc:477-489; sum / 4).
     first = cand_quads[:, :, :3, :] - centroid2[:, :, None, :]
-    transformed = torch.einsum('bcij,bckj->bcki', rotation, first)
+    transformed = _sum3([rotation[..., None, :, j] * first[..., :, j, None]
+                         for j in range(3)])              # (B, C, 3, 3)
     resid = transformed - (ref_quad[:, None, :3, :]
                            - centroid1[:, None, None, :])
     rms = torch.sqrt(_dot(resid, resid)).sum(dim=-1) / 4.0
 
     # transform: x -> R (x - c2) + c1  (ref:cc:491-497, scale = 1)
-    t = centroid1[:, None, :] - torch.einsum('bcij,bcj->bci', rotation,
-                                             centroid2)
+    t = centroid1[:, None, :] - _sum3([rotation[..., j] * centroid2[..., j,
+                                                                    None]
+                                       for j in range(3)])
     transform = torch.zeros(rotation.shape[:2] + (4, 4),
                             dtype=rotation.dtype, device=rotation.device)
     transform[..., :3, :3] = rotation

@@ -15,21 +15,27 @@ import torch
 def masked_indices(mask: torch.Tensor, capacity: int):
     """Indices of True entries of a flat bool mask, compacted to a
     ``(capacity,)`` buffer (ascending order; surplus entries dropped).
+    A mask with leading axes (..., N) is compacted row by row, each row
+    on its own, into (..., capacity).
 
     Returns (idx, valid, count): ``idx`` int64 (0 in dead slots, safe
-    for gathers), ``valid`` bool marks live slots, ``count`` (0-d int64)
-    the true number of set bits (may exceed capacity — callers use it
-    to report overflow).
+    for gathers), ``valid`` bool marks live slots, ``count`` (int64, one
+    per row) the true number of set bits (may exceed capacity — callers
+    use it to report overflow).
     """
     dev = mask.device
-    if mask.numel() == 0:
-        z = torch.zeros(capacity, dtype=torch.int64, device=dev)
-        return z, z.bool(), torch.zeros((), dtype=torch.int64, device=dev)
-    csum = torch.cumsum(mask, dim=0)
-    count = csum[-1]
+    lead = mask.shape[:-1]
+    if mask.shape[-1] == 0:
+        z = torch.zeros(lead + (capacity,), dtype=torch.int64, device=dev)
+        return z, z.bool(), torch.zeros(lead, dtype=torch.int64,
+                                        device=dev)
+    csum = torch.cumsum(mask, dim=-1)
+    count = csum[..., -1]
     s = torch.arange(1, capacity + 1, device=dev)
+    if lead:
+        s = s.expand(lead + (capacity,)).contiguous()
     idx = torch.searchsorted(csum, s, side="left")
-    valid = s <= count
+    valid = s <= count[..., None]
     return torch.where(valid, idx, 0), valid, count
 
 

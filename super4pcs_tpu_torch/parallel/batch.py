@@ -1,0 +1,477 @@
+"""Batched multi-pair scan-graph registration (pairs axis) on one GPU.
+
+PyTorch counterpart of ``super4pcs_tpu.parallel.batch`` (BASELINE.json
+config 5): G independent scan pairs are registered by one step with a
+pairs axis (``matcher.build_step`` over G pairs, the JAX package's
+``vmap``): per step, every pair's base edges are captured by one kernel
+launch per edge over all G * B trials, every trial's join table goes
+through one sort, and each verify stage is one kernel launch for every
+pair's candidates.
+
+Fixed shapes across pairs come from padding every sampled cloud to the
+batch maximum. P clouds are *repeat*-padded (duplicate P points never
+change a min-distance, so LCP and congruent scoring are exact). Q clouds
+are *sentinel*-padded: pad rows sit at the far ``2 * ops.lcp.Q_PAD``
+coordinate, where the pair-distance band never selects them and the LCP
+denominator masks them out, so a padded pair's LCP is exactly its
+unpadded LCP. As in the single-pair matcher, Q's samples are kd-ordered
+before padding (outside similarity mode), which keeps the capture
+kernel's tiles compact for its tile-pair rejection.
+
+Each result carries the same stats dict as the single-pair matcher
+(overflow telemetry, n_congruent, search/compile seconds, ``q_padded``),
+and the run supports the visitor stream and checkpoint/resume contracts
+(``batch_state`` out / ``resume_state`` in).
+
+Coarse search: an explicit ``Options.search_delta_factor`` applies to
+every pair; per-pair rank-best transforms are tracked and redeemed
+through the guarded refine (``refine_iterations`` > 0). The batch step
+never escalates; after the batch loop, pairs still below the terminate
+threshold are re-registered one by one through the port's single-pair
+matcher at the escalated search factor, worst first, within the wall
+budget left (straggler redemption; off when
+``search_escalation_factor`` <= ``search_delta_factor``).
+
+Where the port differs: randomness comes from a ``torch.Generator``
+reseeded per step from ``(random_seed, step index)`` and drawn pair by
+pair (the JAX package splits threefry keys), so runs of the two
+packages agree statistically, not trial for trial. On the card, one
+step and one refine run before the clock starts, their outputs thrown
+away, and count in ``compile_seconds``: the same off-clock warm-up as
+the single-pair matcher (the CUDA libraries' first calls and the
+verify's cell indexes), where the JAX package compiles inside its first
+timed step. Not ported (they raise ``NotImplementedError``, see
+ROADMAP.md): ``mesh=`` (pairs sharded over devices) and the banded pair
+engine.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..cloud import PointCloud
+from ..kernels import lcp as lcp_kernel
+from ..kernels import rowcap as rowcap_kernel
+from ..matcher import (Match4PCS, MatchSuper4PCS, RegistrationResult,
+                       _K_DIAMETER_FRACTION, _K_MIN_TRIALS, _K_SMALL_ERROR,
+                       _not_ported, _step_seed, build_step,
+                       resolve_bases_per_step, resolve_pair_engine)
+from ..options import K_NUMBER_OF_DIAMETER_TRIALS, Options
+from ..ops import geometry, lcp, refine, sampling
+from ..visitor import DummyTransformVisitor, visitor_needs_global
+
+# Q-side sentinel coordinate — beyond ops.lcp.Q_PAD so the masked LCP
+# denominator excludes these rows (see ops/lcp.py::q_valid_mask).
+_Q_SENTINEL = 2.0 * lcp.Q_PAD
+
+
+def _repeat_pad(a: np.ndarray, n: int) -> np.ndarray:
+    if a.shape[0] == n:
+        return a
+    reps = -(-n // a.shape[0])
+    return np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:n]
+
+
+def _sentinel_pad(pos: np.ndarray, n: int) -> np.ndarray:
+    if pos.shape[0] == n:
+        return pos
+    pad = np.full((n - pos.shape[0], 3), _Q_SENTINEL, pos.dtype)
+    return np.concatenate([pos, pad])
+
+
+def _zero_pad(a: np.ndarray, n: int, value: float) -> np.ndarray:
+    if a.shape[0] == n:
+        return a
+    pad = np.full((n - a.shape[0],) + a.shape[1:], value, a.dtype)
+    return np.concatenate([a, pad])
+
+
+def _prep(cloud: PointCloud, opts: Options, truncate: bool,
+          rng: np.random.Generator):
+    # scale mode caps the Q sample exactly like the single-pair matcher
+    # (Options.scale_max_q): without the cap an estimate_scale batch
+    # with sample_size > 2048 would run the allpairs engine over
+    # G * B * nq^2 implicit table rows. P keeps its full sample
+    # (truncate=False).
+    target = opts.sample_size
+    if truncate and opts.estimate_scale and target > opts.scale_max_q:
+        target = opts.scale_max_q
+    sampled = sampling.sample_for_matching(
+        cloud, opts.delta, target, truncate=truncate, rng=rng)
+    if truncate and not opts.estimate_scale:
+        sampled = sampled.take(sampling.kd_argsort(sampled.pos))
+    centroid = sampled.pos.mean(axis=0)
+    return sampled, centroid
+
+
+class BatchRun:
+    """The set-up :func:`register_batch` runs before its clock starts:
+    ``pairs`` sampled, padded and put on ``device``, their batched step
+    built (and on the card warmed). ``run_step(step_idx)`` runs one
+    step of every pair and returns its outputs (the JAX step's dict
+    with a leading G) as numpy arrays."""
+
+    def __init__(self, pairs: Sequence[Tuple[PointCloud, PointCloud]],
+                 options: Optional[Options] = None,
+                 algorithm: str = "super4pcs", device="cuda"):
+        opts = self.opts = options or Options()
+        dev = self.dev = torch.device(device)
+        cone_tol = (opts.cone_cos_tolerance if algorithm == "super4pcs"
+                    else -1.0)
+        g = self.g = len(pairs)
+        rng = np.random.default_rng(opts.random_seed)
+        preps = [(_prep(p, opts, False, rng), _prep(q, opts, True, rng))
+                 for p, q in pairs]
+        np_max = max(len(pp) for (pp, _), _ in preps)
+        self.nq_max = max(len(qq) for _, (qq, _) in preps)
+        self.nq_real = np.asarray([len(qq) for _, (qq, _) in preps])
+        if opts.bases_per_step is None:
+            opts = self.opts = opts.replace(
+                bases_per_step=resolve_bases_per_step(opts, self.nq_max))
+        # the banded engine is not ported: resolving it raises
+        self.engine = resolve_pair_engine(opts, self.nq_max)
+        p_pos = np.stack([_repeat_pad(pp.pos - cp, np_max)
+                          for (pp, cp), _ in preps])
+        p_norm = np.stack([_repeat_pad(pp.normals_or_zero(), np_max)
+                           for (pp, _), _ in preps])
+        p_rgb = np.stack([_repeat_pad(pp.rgb_or_invalid(), np_max)
+                          for (pp, _), _ in preps])
+        q_pos = np.stack([_sentinel_pad(qq.pos - cq, self.nq_max)
+                          for _, (qq, cq) in preps])
+        q_norm = np.stack([_zero_pad(qq.normals_or_zero(), self.nq_max,
+                                     0.0) for _, (qq, _) in preps])
+        q_rgb = np.stack([_zero_pad(qq.rgb_or_invalid(), self.nq_max,
+                                    -1.0) for _, (qq, _) in preps])
+        self.cent_p = np.stack([cp for (_, cp), _ in preps])
+        self.cent_q = np.stack([cq for _, (_, cq) in preps])
+        # diameter from the *unpadded* samples (sentinel rows would blow
+        # the estimate up by ~Q_PAD/extent)
+        diams = np.asarray([
+            geometry.estimate_diameter(
+                preps[i][1][0].pos - self.cent_q[i],
+                K_NUMBER_OF_DIAMETER_TRIALS, rng)
+            for i in range(g)], np.float32)
+
+        # trial estimate from the worst pair (ref:hpp:175-185 semantics)
+        overlap = opts.overlap_estimation
+        denom = math.log(max(1.0 - overlap ** _K_MIN_TRIALS, 1e-300))
+        first_estimation = (math.log(_K_SMALL_ERROR) / denom
+                            if denom else 0.0)
+        self.n_trials = max(int(first_estimation / _K_DIAMETER_FRACTION),
+                            _K_MIN_TRIALS)
+
+        tc = time.perf_counter()
+        self.step, (_, self.k_quads, _) = build_step(opts, self.nq_max,
+                                                     cone_tol)
+        self.arrays = tuple(self.put(a) for a in (
+            p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb))
+        self.diam = self.put(diams)
+        rowcap = self.engine == "rowcap"
+        # the Q tile bounds of the capture's tile-pair rejection, per
+        # pair
+        self.q_bounds = (rowcap_kernel.reject_bounds(self.arrays[3])
+                         if rowcap and opts.rowcap_tile_reject
+                         and dev.type == "cuda" else None)
+        # every pair's cell indexes of the verify, built once for the run
+        self.p_index = lcp.VerifyIndex(self.arrays[0])
+        self.gen = torch.Generator(device=dev)
+        if dev.type == "cuda":
+            # the kernels' builds, and one step and one refine whose
+            # outputs are thrown away, before the clock (see the module
+            # docstring)
+            lcp_kernel._lib()
+            if rowcap:
+                rowcap_kernel._lib()
+            self.run_step(-1)
+            if opts.refine_iterations > 0:
+                self.refine_pairs(np.tile(np.eye(4, dtype=np.float32),
+                                          (g, 1, 1)))
+            torch.cuda.synchronize(dev)
+
+        # initial LCP of the identity per pair (ref:hpp:201); the masked
+        # denominator makes sentinel padding exact here and below
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        self.init_scores = lcp.lcp_scores(
+            eye.expand(g, 1, 4, 4), self.arrays[3], self.arrays[0],
+            opts.delta, self.p_index.get(1, opts.delta))[:, 0].cpu().numpy()
+        self.compile_seconds = time.perf_counter() - tc
+
+    def put(self, a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.dev)
+
+    def run_step(self, step_idx: int) -> dict:
+        """Step ``step_idx`` of every pair (its draws seeded from the
+        run seed and the index), its outputs fetched to the host."""
+        self.gen.manual_seed(_step_seed(self.opts.random_seed, step_idx))
+        with torch.no_grad():
+            out = self.step(self.gen, self.diam, *self.arrays,
+                            self.q_bounds, self.p_index)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def refine_pairs(self, src: np.ndarray):
+        """The guarded refine of every pair's ``src`` (G, 4, 4): (the
+        refined (G, 4, 4), the exact LCP of both (G, 2)), the refines
+        one pair at a time, the scores in one verify launch."""
+        opts = self.opts
+        d_p, d_q = self.arrays[0], self.arrays[3]
+        with torch.no_grad():
+            cur = self.put(src)
+            refined = torch.stack([refine.refine_transform(
+                cur[i], d_q[i], d_p[i], opts.delta,
+                iters=opts.refine_iterations,
+                start_factor=opts.search_delta_factor,
+                estimate_scale=opts.estimate_scale) for i in range(self.g)])
+            scores = lcp.lcp_scores(torch.stack([cur, refined], dim=1),
+                                    d_q, d_p, opts.delta,
+                                    self.p_index.get(1, opts.delta))
+        return refined.cpu().numpy(), scores.cpu().numpy()
+
+
+def register_batch(
+    pairs: Sequence[Tuple[PointCloud, PointCloud]],
+    options: Optional[Options] = None,
+    mesh=None,
+    algorithm: str = "super4pcs",
+    visitor=None,
+    resume_state: Optional[dict] = None,
+    on_checkpoint=None,
+    device="cuda",
+) -> List[RegistrationResult]:
+    """Register ``pairs[g] = (P_g, Q_g)`` for all g with one batched step.
+
+    ``device``: where the clouds live and the kernels run ("cuda" by
+    default; "cpu" runs the kernels' plain versions). ``mesh`` (pairs
+    sharded over devices) is not ported and raises.
+
+    ``visitor``: optional callable ``visitor(fraction, scores, mats)``
+    with per-pair arrays ``scores (G,)`` / ``mats (G, 4, 4)`` — called
+    once before the loop (fraction 0), after every improving step
+    (fraction -1, matching the single-pair improvement convention,
+    ref:hpp:458-465) and every step (progress fraction). When the
+    visitor answers ``needs_global_transformation() == True`` the mats
+    are recomposed into original coordinates.
+
+    ``resume_state``: dict returned in ``results[g].stats["batch_state"]``
+    of a previous (possibly interrupted) run over the *same pairs and
+    options* — the search resumes from its trial counter and per-pair
+    best-so-far, continuing the same draw stream.
+
+    ``on_checkpoint``: optional callable receiving the serializable
+    state dict after every device step (persist it; a fresh run passing
+    it as ``resume_state`` continues where the dead one stopped).
+    """
+    if mesh is not None:
+        raise _not_ported("pairs-axis sharding (mesh=)")
+    visitor = visitor or DummyTransformVisitor()
+    needs_global = visitor_needs_global(visitor)
+    g = len(pairs)
+    if g == 0:
+        return []
+    run = BatchRun(pairs, options, algorithm, device)
+    dev = run.dev
+    opts = run.opts
+    k_quads, n_trials = run.k_quads, run.n_trials
+    cent_p, cent_q = run.cent_p, run.cent_q
+    nq_max, nq_real = run.nq_max, run.nq_real
+    compile_seconds = run.compile_seconds
+    init_scores = run.init_scores
+
+    best = {
+        "lcp": init_scores.copy(),
+        "transform": np.tile(np.eye(4, dtype=np.float32), (g, 1, 1)),
+        "qcentroid1": np.zeros((g, 3), np.float32),
+        "qcentroid2": np.zeros((g, 3), np.float32),
+    }
+    # Coarse-search support (explicit Options.search_delta_factor > 1):
+    # step winners are selected on the rank metric (sf * delta) and
+    # their exact-delta scores are depressed, so track each pair's
+    # rank-best transform too and give it to the guarded refine below,
+    # as the single-pair matcher's _refine_candidate does.
+    rank_best = None
+    if opts.search_delta_factor != 1.0 and opts.refine_iterations > 0:
+        rank_best = {
+            "rank": np.full(g, -np.inf, np.float32),
+            "transform": np.tile(np.eye(4, dtype=np.float32), (g, 1, 1)),
+        }
+    improved = np.zeros(g, bool)
+    counters = {name: np.zeros(g, np.int64) for name in
+                ("pairs_overflow", "quads_overflow", "cands_overflow",
+                 "n_congruent", "cell_dropped", "q_sampled_out")}
+    trial = 0
+    step_idx = 0
+    if resume_state is not None:
+        trial = int(resume_state["trial"])
+        step_idx = int(resume_state["step_idx"])
+        improved = np.asarray(resume_state["improved"], bool).copy()
+        for name in best:
+            best[name] = np.asarray(resume_state[name],
+                                    np.float32).copy()
+        for name in counters:
+            if name in resume_state["counters"]:
+                counters[name] = np.asarray(
+                    resume_state["counters"][name], np.int64).copy()
+
+    def global_mats():
+        mats = np.tile(np.eye(4, dtype=np.float32), (g, 1, 1))
+        for i in range(g):
+            if improved[i]:
+                mats[i] = best["transform"][i]
+                rot = mats[i, :3, :3]
+                mats[i, :3, 3] = (best["qcentroid1"][i] + cent_p[i]
+                                  - rot @ (best["qcentroid2"][i]
+                                           + cent_q[i]))
+        return mats
+
+    def visit(fraction):
+        mats = global_mats() if needs_global else best["transform"].copy()
+        visitor(fraction, best["lcp"].copy(), mats)
+
+    def snapshot_state():
+        return {
+            "trial": trial, "step_idx": step_idx,
+            "improved": improved.tolist(),
+            "counters": {k: v.tolist() for k, v in counters.items()},
+            **{k: v.tolist() for k, v in best.items()},
+        }
+
+    visit(0.0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        while True:
+            out = run.run_step(step_idx)
+            lcps = out["lcp"]
+            upd = lcps > best["lcp"]
+            improved |= upd
+            for name in ("lcp", "transform", "qcentroid1", "qcentroid2"):
+                best[name][upd] = out[name][upd]
+
+            # same dropped-ITEM accounting as the single-pair matcher,
+            # kept per pair. pair_counts: (G, B, 6) = (c1, c2, qcount,
+            # cell_dropped, pairs_dropped, q_sampled_out)
+            counts = out["pair_counts"]
+            counters["n_congruent"] += out["n_congruent"]
+            counters["pairs_overflow"] += counts[:, :, 4].sum(axis=1)
+            counters["quads_overflow"] += np.maximum(
+                counts[:, :, 2] - k_quads, 0).sum(axis=1)
+            counters["cell_dropped"] += counts[:, :, 3].sum(axis=1)
+            counters["q_sampled_out"] += counts[:, :, 5].sum(axis=1)
+            counters["cands_overflow"] += out["cands_dropped"]
+
+            if rank_best is not None:
+                ranks = out["rank_lcp"]
+                rupd = (ranks > rank_best["rank"]) & (ranks >= 0)
+                rank_best["rank"][rupd] = ranks[rupd]
+                rank_best["transform"][rupd] = out["transform"][rupd]
+
+            trial += opts.bases_per_step
+            step_idx += 1
+            if on_checkpoint is not None:
+                on_checkpoint(snapshot_state())
+            if upd.any():
+                visit(-1.0)
+            fraction_time = ((time.perf_counter() - t0)
+                             / opts.max_time_seconds)
+            fraction = (fraction_time if opts.use_full_time_budget
+                        else max(trial / n_trials, fraction_time))
+            visit(min(fraction, 1.0))
+            if (fraction >= 0.99
+                    or (trial > n_trials and not opts.use_full_time_budget)
+                    or (best["lcp"] >= opts.terminate_threshold).all()):
+                break
+        search_seconds = time.perf_counter() - t0
+
+        # guarded trimmed-ICP polish of every pair (same contract as the
+        # single-pair matcher: kept only if LCP improves). In
+        # coarse-search mode the per-pair rank-best transforms are
+        # refined too — that is how a coarse-ranked winner becomes the
+        # best.
+        if opts.refine_iterations > 0:
+            sources = [best["transform"]]
+            if rank_best is not None:
+                sources.append(rank_best["transform"])
+            for src in sources:
+                refined, scores = run.refine_pairs(src)
+                for i in range(g):
+                    if scores[i, 1] > best["lcp"][i]:
+                        best["lcp"][i] = scores[i, 1]
+                        best["transform"][i] = refined[i]
+                        best["qcentroid1"][i] = refined[i, :3, 3]
+                        best["qcentroid2"][i] = 0.0
+                        improved[i] = True
+
+    # Straggler redemption (single-pair escalation analog, see module
+    # docstring): re-register the pairs still below the terminate
+    # threshold individually at the escalated search factor, worst
+    # first, while wall budget remains.
+    redeemed = {}
+    if (opts.search_escalation_factor > opts.search_delta_factor
+            and opts.refine_iterations > 0):
+        cls = MatchSuper4PCS if algorithm == "super4pcs" else Match4PCS
+        order = sorted(
+            (i for i in range(g)
+             if best["lcp"][i] < opts.terminate_threshold),
+            key=lambda i: best["lcp"][i])
+        for i in order:
+            remaining = opts.max_time_seconds - (time.perf_counter() - t0)
+            if remaining < max(0.1 * opts.max_time_seconds, 15.0):
+                break
+            # full-time-budget: the pair already failed one trial
+            # estimate in the batch — the redemption pass should use
+            # the wall budget, not fail the same estimate again
+            sub = opts.replace(
+                search_delta_factor=opts.search_escalation_factor,
+                max_time_seconds=int(remaining),
+                use_full_time_budget=True,
+                bases_per_step=None)
+            r = cls(sub, device=dev).compute_transformation(pairs[i][0],
+                                                            pairs[i][1])
+            if r.score > best["lcp"][i] and r.improved:
+                # kept OUTSIDE the resumable batch_state: the redeemed
+                # transform lives in original coordinates (the batch
+                # state tracks centered-frame poses); a resumed run
+                # simply redeems again
+                r.stats["straggler_escalated_to"] = \
+                    opts.search_escalation_factor
+                redeemed[i] = r
+
+    batch_state = snapshot_state()
+    results = []
+    for i in range(g):
+        if i in redeemed:
+            r = redeemed[i]
+            stats = {name: int(counters[name][i]) for name in counters}
+            stats.update(r.stats, compile_seconds=compile_seconds,
+                         q_padded=int(nq_max - nq_real[i]),
+                         batch_state=batch_state)
+            results.append(RegistrationResult(
+                score=r.score, transform=r.transform,
+                transformed_q=r.transformed_q,
+                n_trials=trial + r.n_trials,
+                improved=True, stats=stats))
+            continue
+        if improved[i]:
+            mat = np.array(best["transform"][i])
+            rot = mat[:3, :3]
+            mat[:3, 3] = (best["qcentroid1"][i] + cent_p[i]
+                          - rot @ (best["qcentroid2"][i] + cent_q[i]))
+            moved = pairs[i][1].transformed(mat)
+        else:
+            mat = np.eye(4, dtype=np.float32)
+            moved = pairs[i][1]
+        stats = {name: int(counters[name][i]) for name in counters}
+        stats.update(
+            compile_seconds=compile_seconds,
+            search_seconds=search_seconds,
+            q_padded=int(nq_max - nq_real[i]),
+            batch_state=batch_state,
+        )
+        results.append(RegistrationResult(
+            score=float(best["lcp"][i]), transform=mat,
+            transformed_q=moved, n_trials=trial,
+            improved=bool(improved[i]), stats=stats))
+    return results

@@ -327,3 +327,89 @@ def test_allpairs_scale_registration_on_the_card(dev):
     assert abs(est - s) < 0.05
     moved = q @ res.transform[:3, :3].T + res.transform[:3, 3]
     assert np.median(np.linalg.norm(moved - pos, axis=1)) < 0.04
+
+
+@pytest.mark.parametrize("filters", [{}, dict(
+    max_normal_difference=20.0, max_color_distance=60.0,
+    max_translation_distance=1.3, max_angle=80.0)])
+def test_batched_capture_bit_identical_to_plain(dev, filters):
+    """K2 over the trial axis: T = 6 trials of G = 2 clouds in one
+    launch per edge (rejection on, the join hash on edge 0), every
+    trial's tables bit-identical to the plain version's; the launches
+    count 2 and the captures 12."""
+    rng = np.random.default_rng(17)
+    n = 5000
+    clouds = [_kd_sphere(rng, n, dev) for _ in range(2)]
+    q, nrm, rgb = (torch.stack(x) for x in zip(*clouds))
+    ids = torch.as_tensor(np.stack([rng.choice(n, 4, replace=False)
+                                    for _ in range(6)]), device=dev)
+    g_of = torch.arange(6, device=dev)[:, None] // 3
+    args = (q, q[g_of, ids], 0.02, k2.slots_for(n, 40))
+    kw = dict(invariant1=torch.linspace(0.2, 0.7, 6, device=dev),
+              cell_size=0.04, normal=nrm, rgb=rgb,
+              base_norm=nrm[g_of, ids], base_rgb=rgb[g_of, ids], **filters)
+    before = (k2.rowcap_capture.launches, k2.rowcap_capture.captures)
+    got = k2.extract_pairs_rowcap_both(*args, tile_reject=True, **kw)
+    torch.cuda.synchronize()
+    assert (k2.rowcap_capture.launches,
+            k2.rowcap_capture.captures) == (before[0] + 2, before[1] + 12)
+    plain = k2.extract_pairs_rowcap_both(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args),
+        **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+    for a, c in zip(got, plain):
+        for xa, xc in zip(*(t if isinstance(t, tuple) else (t,)
+                            for t in (a, c))):
+            assert torch.equal(xa.cpu(), xc)
+    assert (got[0][2] > 0).all()
+
+
+def test_batched_verify_bit_identical_to_plain(dev):
+    """K1 over the pairs axis with indexes built once: one launch for
+    two pairs (one of them sentinel-padded), equal to the plain walk
+    per pair."""
+    from super4pcs_tpu_torch.ops import lcp as ops_lcp
+    rng = np.random.default_rng(5)
+    p = torch.stack([next(_kd_sphere(rng, 3000, dev)) for _ in range(2)])
+    q = p[:, ::3].clone() + 0.002
+    q[1, -50:] = 2.0e17
+    tr = torch.stack([torch.as_tensor(_transforms(rng, 64), device=dev)
+                      for _ in range(2)])
+    tr[:, :, :3, :3] = torch.eye(3, device=dev)
+    index = ops_lcp.VerifyIndex(p)
+    before = k1.lcp_min_d2_within.launches
+    got = k1.lcp_min_d2_within(tr, q, p, 0.03, index.get(1, 0.03))
+    torch.cuda.synchronize()
+    assert k1.lcp_min_d2_within.launches == before + 1
+    for g in range(2):
+        assert torch.equal(got[g], k1.lcp_min_d2_within_plain(
+            tr[g], q[g], p[g], 0.03))
+    assert int(torch.isfinite(got).sum()) > 0
+
+
+def test_step_over_two_pairs_on_the_card(dev):
+    """A G = 2 rowcap step on the card equals two G = 1 steps given the
+    same draws, output for output."""
+    from super4pcs_tpu_torch import matcher
+    from super4pcs_tpu_torch.ops import lcp as ops_lcp, select
+    rng = np.random.default_rng(9)
+    n = 3000
+    opts = s4t.Options(delta=0.02, bases_per_step=4, pair_engine="rowcap",
+                       verify_top_k=256, max_candidates=2048)
+    step, _ = matcher.build_step(opts, n, 0.3)
+    pos = torch.stack([next(_kd_sphere(rng, n, dev)) for _ in range(2)])
+    z = torch.zeros_like(pos)
+    arrs = (pos, z, z - 1, pos.flip(1).contiguous(), z, z - 1)
+    bounds = k2.reject_bounds(arrs[3])
+    diam = torch.tensor([2.0, 2.0], device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    both = step(gen, diam, *arrs, bounds, ops_lcp.VerifyIndex(pos))
+    for g in range(2):
+        gen.manual_seed(4)
+        if g == 1:
+            select.draw_base_indices(gen, n, 4, opts.n_triangle_trials)
+        one = step(gen, diam[g:g + 1], *(a[g:g + 1] for a in arrs),
+                   tuple(b[g:g + 1] for b in bounds),
+                   ops_lcp.VerifyIndex(pos[g:g + 1]))
+        for k, v in one.items():
+            assert torch.equal(both[k][g], v[0]), k
