@@ -27,7 +27,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    its streamed-P kernel K3: the brute force against its plain version,
    lcp_min_d2_within at the exact stage against the contract; then
    min_sq_dists (K1 with the identity transform, for K4a/K4b) against
-   its plain version;
+   its plain version; torch.cdist + amin over the whole 16384 x 530,895
+   matrix as the library yardstick of K4a and of K3 at C = 1;
 4. K2 (band capture) against its plain version at n = 8192,
    row_cap = 160, edge 0 with the join hash: cols/rc/h bit-identical,
    then the same with tile-pair rejection on (the one-thread-per-row
@@ -93,6 +94,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    outside the path, one step's launches (2 capture launches covering
    2 x 64 captures, 3 verify launches, no index build) and the wall,
    device time and idle share of a step;
+5j-banded. 5j with ``pair_engine="banded"``: the four pairs' band
+   indexes padded and stacked once per run, T = 64 trials a step, K1
+   and no K2; the same gates, launches and step profile (extraction,
+   join and verify device time);
+5k. the headline registration forced onto the banded engine
+   (``pair_engine="banded"``): the same gates, K1 and no K2; its band
+   index (cells, cell size, members dropped, host bucketing and table
+   sort times), overflow counters and a step's profile;
+5l. the 1M pair of bench.py:109-123 at ``delta=0.005,
+   sample_size=131072`` (seed 5, overlap and threshold 0.7, 120 s, the
+   whole budget open to the search): "auto" resolves to banded at
+   nq = 131,072 against Np = 530,895;
+   LCP >= 0.7 within the budget and the pose gates; printed as 5k;
+   then, measured and not gated, the rowcap engine on the same samples
+   (K2 capturing at n = 131,072): two steps' profile and peak memory
+   beside 5l's banded step;
 6. the 500-point known-pose recipe on the GPU (dense engine,
    lcp_min_d2_within only);
 7. a headline step's launches (2 capture launches, 3 verify
@@ -111,7 +128,7 @@ filtered registration once per seed with tile-pair rejection on and
 once with it off (alternating which goes first), and prints each run's
 search seconds, trials and LCP and the medians.
 
-Each registration (5, 5b, 5c-5j, 6) is a path of its own: the launch
+Each registration (5, 5b, 5c-5l, 6) is a path of its own: the launch
 counts (K2's launches and the captures they covered) are set to 0 just
 before it and read just after.
 
@@ -182,17 +199,18 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_events(fn, attempts: int = 3, scope: str = ""):
-    """(name, microseconds, in_scope) of every kernel the card ran during
-    ``fn``, from torch.profiler; ``in_scope`` marks the kernels launched
-    inside a host range named ``scope`` (``record_function``), found
-    through the ops the profiler nests in that range. Now and then a
-    trace comes back without any device record: ``fn`` is then profiled
-    again, and it fails when ``attempts`` traces in a row recorded
-    none."""
+def _device_events(fn, attempts: int = 3, scope=()):
+    """(name, microseconds, scope) of every kernel the card ran during
+    ``fn``, from torch.profiler; ``scope`` names the host range
+    (``record_function``, one of the names in ``scope``: a string or a
+    tuple of them) the kernel was launched in, found through the ops the
+    profiler nests in that range, or is None. Now and then a trace comes
+    back without any device record: ``fn`` is then profiled again, and
+    it fails when ``attempts`` traces in a row recorded none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    scopes = (scope,) if isinstance(scope, str) else tuple(scope)
     for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -205,23 +223,26 @@ def _device_events(fn, attempts: int = 3, scope: str = ""):
         evs = [(e.name, e.time_range.elapsed_us()) for e in events
                if e.device_type == cuda
                and not getattr(e, "is_user_annotation", False)
-               and not (scope and e.name == scope)]
+               and e.name not in scopes]
         if evs:
-            scoped = collections.Counter()
+            scoped = collections.defaultdict(collections.Counter)
 
-            def collect(e):
-                scoped.update((k.name, k.duration) for k in e.kernels)
+            def collect(e, label):
+                for k in e.kernels:
+                    scoped[(k.name, k.duration)][label] += 1
                 for child in e.cpu_children:
-                    collect(child)
+                    collect(child, label)
 
             for e in events:
-                if scope and e.name == scope and e.device_type == cpu:
-                    collect(e)
+                if e.name in scopes and e.device_type == cpu:
+                    collect(e, e.name)
             out = []
             for name, t in evs:
-                inside = scoped[(name, t)] > 0
-                scoped[(name, t)] -= inside
-                out.append((name, t, inside))
+                left = +scoped[(name, t)]
+                label = next(iter(left), None)
+                if label is not None:
+                    scoped[(name, t)][label] -= 1
+                out.append((name, t, label))
             return out
         _log(f"  torch.profiler recorded no device time (trace "
              f"{attempt + 1} of {attempts})")
@@ -867,9 +888,10 @@ def _scale_paths(s4, counters, by_path):
     return numbers
 
 
-def _batch_path(P, Q, s4, counters, by_path):
-    """Phase 5j: ``register_batch`` on G = 4 pairs at the headline's
-    width (the headline pair and the three consecutive pairs of the
+def _batch_path(P, Q, s4, counters, by_path, engine="auto"):
+    """Phase 5j (``engine`` "auto": rowcap) and 5j-banded (``engine``
+    "banded"): ``register_batch`` on G = 4 pairs at the headline's width
+    (the headline pair and the three consecutive pairs of the
     sequence-full views) with 5g sequence-full's options; each pair
     gated on LCP >= 0.6 and its known relative pose; then, outside the
     path, one step's launches and two steps' wall and device time of
@@ -877,6 +899,8 @@ def _batch_path(P, Q, s4, counters, by_path):
     import numpy as np
     import torch
     from super4pcs_tpu_torch.parallel import batch
+    label = "batch" if engine == "auto" else f"batch-{engine}"
+    banded = engine == "banded"
     scans, gts = _sequence_views(P)
     pairs = [(s4.PointCloud(P), s4.PointCloud(Q))] + [
         (s4.PointCloud(scans[i]), s4.PointCloud(scans[i + 1]))
@@ -887,18 +911,19 @@ def _batch_path(P, Q, s4, counters, by_path):
         gts[i].astype(np.float64) @ np.linalg.inv(
             gts[i + 1].astype(np.float64)) for i in range(3)]
     opts = s4.Options(delta=0.01, sample_size=8192, max_time_seconds=30,
-                      random_seed=5).configure_overlap(0.5, 0.6)
+                      random_seed=5, pair_engine=engine
+                      ).configure_overlap(0.5, 0.6)
     res, counts, wall, peak = _run_path(
-        "batch", lambda: batch.register_batch(pairs, opts, device="cuda"),
+        label, lambda: batch.register_batch(pairs, opts, device="cuda"),
         counters)
-    by_path["batch"] = counts
+    by_path[label] = counts
     b_eff = s4.matcher.resolve_bases_per_step(opts, 8192)
     numbers = dict(wall_s=wall, peak_mib=peak, pairs=[])
     ok = True
     for g, (r, gt) in enumerate(zip(res, truth)):
         rot_diff, tr_diff = s4.reference_pose_diff(r.transform, gt)
         st = r.stats
-        _log(f"batch pair {g}: score={r.score:.4f} trials={r.n_trials} "
+        _log(f"{label} pair {g}: score={r.score:.4f} trials={r.n_trials} "
              f"search_s={st.get('search_seconds', float('nan')):.3f} "
              f"q_padded={st['q_padded']} rotDiff={rot_diff:.4f} "
              f"trDiff={tr_diff:.4f} straggler_escalated_to="
@@ -913,12 +938,20 @@ def _batch_path(P, Q, s4, counters, by_path):
             rot_diff=rot_diff, tr_diff=tr_diff,
             redeemed="straggler_escalated_to" in st))
     numbers["compile_s"] = res[0].stats["compile_seconds"]
-    _log(f"batch: G=4 B={b_eff} T={4 * b_eff} wall_s={wall:.3f} "
-         f"peak_MiB={peak:.1f}")
+    if banded:
+        numbers["band_cells"] = res[0].stats["band_cells"]
+        numbers["band_member_dropped"] = res[0].stats["band_member_dropped"]
+    _log(f"{label}: G=4 B={b_eff} T={4 * b_eff} wall_s={wall:.3f} "
+         f"peak_MiB={peak:.1f} band_cells="
+         f"{res[0].stats.get('band_cells', '-')}")
     if not ok:
-        raise SystemExit("batch: a pair missed its gates")
-    if min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0:
-        raise SystemExit("batch: a kernel of the path never launched")
+        raise SystemExit(f"{label}: a pair missed its gates")
+    if counts["lcp_min_d2_within"] <= 0 or (
+            (counts["rowcap_capture"] > 0) == banded):
+        raise SystemExit(f"{label}: K1 launched "
+                         f"{counts['lcp_min_d2_within']} times, K2 "
+                         f"{counts['rowcap_capture']} (wanted "
+                         f"{'none' if banded else 'some'})")
 
     # one step's launches, then the wall of 2 steps and the device time
     # of 2 more under the profiler (outside the path)
@@ -928,36 +961,231 @@ def _batch_path(P, Q, s4, counters, by_path):
     builds = run.p_index.builds
     run.run_step(0)
     per_step = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in (1, 2):
-        run.run_step(i)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / 2
-    evs = _device_events(lambda: [run.run_step(i) for i in (3, 4)])
-    busy = sum(t for _, t, _ in evs) / 2 / 1e3
-    k2_ms = sum(t for name, t, _ in evs
-                if any(k in name for k in K2_NAMES)) / 2e3
-    k1_ms = sum(t for name, t, _ in evs if K1W_NAME in name) / 2e3
-    sort_ms = sum(t for name, t, _ in evs if "sort" in name.lower()) / 2e3
-    _log(f"batch step (G=4, T={4 * b_eff}): launches per step "
+    prof = _step_profile(run.run_step, 1)
+    _log(f"{label} step (G=4, T={4 * b_eff}): launches per step "
          f"{per_step}; index builds during steps "
-         f"{run.p_index.builds - builds}; wall {1e3 * step_s:.1f} ms, "
-         f"device busy {busy:.1f} ms (idle share "
-         f"{100 * (1 - busy / (1e3 * step_s)):.0f}%), {len(evs) / 2:.0f} "
-         f"kernels per step; K2 {k2_ms:.3f} ms, K1 {k1_ms:.3f} ms, sorts "
-         f"{sort_ms:.3f} ms")
-    if (per_step["rowcap_capture"] != 2
-            or per_step["rowcap_capture_captures"] != 2 * 4 * b_eff
+         f"{run.p_index.builds - builds}; " + _profile_text(prof))
+    want_k2 = 0 if banded else 2
+    if (per_step["rowcap_capture"] != want_k2
+            or per_step["rowcap_capture_captures"] != want_k2 * 4 * b_eff
             or per_step["lcp_min_d2_within"] != 3
             or run.p_index.builds != builds):
-        raise SystemExit("batch: a step launched other than 2 captures of "
-                         "every trial and 3 verifies, or built an index")
-    numbers.update(step_launches=per_step, step_wall_ms=1e3 * step_s,
-                   step_busy_ms=busy, step_kernels=len(evs) / 2,
-                   step_k2_ms=k2_ms, step_k1_ms=k1_ms,
-                   step_sort_ms=sort_ms)
+        raise SystemExit(f"{label}: a step launched other than "
+                         f"{want_k2} captures of every trial and 3 "
+                         f"verifies, or built an index")
+    numbers.update(step_launches=per_step, **prof)
     del run
+    return numbers
+
+
+@contextlib.contextmanager
+def _phase_scopes():
+    """Within the block, a step's pair extraction (banded or the capture
+    kernel), congruent join and verify each run inside a
+    ``record_function`` range ("extract", "join", "verify"), so that
+    the profiler attributes their kernels."""
+    import torch
+    from super4pcs_tpu_torch import matcher
+    from super4pcs_tpu_torch.kernels import rowcap
+    from super4pcs_tpu_torch.ops import congruent, lcp
+    targets = ((matcher, "extract_pairs_banded", "extract"),
+               (rowcap, "extract_pairs_rowcap_both", "extract"),
+               (congruent, "find_congruent_quads_grid", "join"),
+               (lcp, "lcp_scores_two_stage", "verify"))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def scoped(fn, label):
+        def inner(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return inner
+
+    for mod, attr, label in targets:
+        setattr(mod, attr, scoped(getattr(mod, attr), label))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _step_profile(run_step, first: int, n: int = 2) -> dict:
+    """Steps ``first`` on: the wall of ``n`` unprofiled steps, then the
+    device time of ``n`` more under the profiler, by phase (extraction,
+    join, verify: see :func:`_phase_scopes`) and by kernel (K1, K2, the
+    sorts). Milliseconds per step."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(first, first + n):
+        run_step(i)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    with _phase_scopes():
+        evs = _device_events(
+            lambda: [run_step(i) for i in range(first + n, first + 2 * n)],
+            scope=("extract", "join", "verify"))
+    busy = sum(t for _, t, _ in evs) / n / 1e3
+
+    def ms(pred):
+        return sum(t for name, t, sc in evs if pred(name, sc)) / n / 1e3
+
+    def k2(name):
+        return any(k in name for k in K2_NAMES)
+
+    # K1 and K2 are launched through ctypes, outside any torch op, so
+    # the profiler links them to no range: a step launches them only in
+    # its verify and its capture
+    return dict(
+        step_wall_ms=wall, step_busy_ms=busy,
+        idle_share=1.0 - busy / wall, step_kernels=len(evs) / n,
+        extract_ms=ms(lambda name, sc: sc == "extract" or k2(name)),
+        join_ms=ms(lambda _, sc: sc == "join"),
+        verify_ms=ms(lambda name, sc: sc == "verify" or K1W_NAME in name),
+        k1_ms=ms(lambda name, _: K1W_NAME in name),
+        k2_ms=ms(lambda name, _: k2(name)),
+        sort_ms=ms(lambda name, _: "sort" in name.lower()))
+
+
+def _profile_text(p: dict) -> str:
+    return (f"wall {p['step_wall_ms']:.1f} ms, device busy "
+            f"{p['step_busy_ms']:.1f} ms (idle share "
+            f"{100 * p['idle_share']:.0f}%), {p['step_kernels']:.0f} "
+            f"kernels per step; extraction {p['extract_ms']:.3f} ms, join "
+            f"{p['join_ms']:.3f} ms, verify {p['verify_ms']:.3f} ms; K2 "
+            f"{p['k2_ms']:.3f} ms, K1 {p['k1_ms']:.3f} ms, sorts "
+            f"{p['sort_ms']:.3f} ms")
+
+
+def _banded_paths(P, Q, upos, uq, opts, s4, counters, by_path):
+    """Phases 5k (the headline forced onto the banded engine) and 5l
+    (auto -> banded at nq = 131,072 on the 1M pair), each a path of its
+    own, then, outside every path, two steps of the rowcap engine on
+    5l's samples (K2 at n = 131,072), measured and not gated. Returns
+    the numbers each printed."""
+    import torch
+    gt = _ground_truth()
+    numbers = {}
+
+    def banded_run(label, o, cp, cq, want_nq=None, want_np=None):
+        matchers = []
+        refines = []
+        refine_fn = s4.matcher.refine.refine_transform
+
+        def timed_refine(*args, **kw):
+            # the guarded ICP's calls (the warm-up's too), timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = refine_fn(*args, **kw)
+            torch.cuda.synchronize()
+            refines.append(time.perf_counter() - t0)
+            return out
+
+        def run():
+            m = s4.MatchSuper4PCS(o, device="cuda")
+            matchers.append(m)
+            s4.matcher.refine.refine_transform = timed_refine
+            try:
+                return m.compute_transformation(s4.PointCloud(cp),
+                                                s4.PointCloud(cq))
+            finally:
+                s4.matcher.refine.refine_transform = refine_fn
+
+        res, counts, wall, peak = _run_path(label, run, counters)
+        by_path[label] = counts
+        m = matchers[0]
+        nq, np_ = len(m.get_second_sampled()), len(m.get_first_sampled())
+        engine = s4.matcher.resolve_pair_engine(o, nq)
+        st, idx = res.stats, m._band_index
+        rot_diff, tr_diff = s4.reference_pose_diff(res.transform, gt)
+        steps = max(res.n_trials // m._b_eff, 1)
+        row = dict(
+            nq=nq, np=np_, engine=engine, trials=res.n_trials, steps=steps,
+            score=res.score, search_s=st["search_seconds"],
+            compile_s=st["compile_seconds"], wall_s=wall, peak_mib=peak,
+            rot_diff=rot_diff, tr_diff=tr_diff,
+            band_cells=st.get("band_cells"),
+            band_cell_size=st.get("band_cell_size"),
+            band_member_dropped=st.get("band_member_dropped"),
+            band_m_real=None if idx is None else idx.m_real,
+            band_pc=None if idx is None else idx.pc,
+            index_host_ms=None if idx is None else 1e3 * idx.host_seconds,
+            index_sort_ms=None if idx is None else 1e3 * idx.sort_seconds,
+            pairs_overflow=st["pairs_overflow"],
+            quads_overflow=st["quads_overflow"],
+            cell_dropped=st["cell_dropped"],
+            escalated_to=st.get("escalated_to"),
+            k1_launches=counts["lcp_min_d2_within"],
+            refine_calls=len(refines), refine_s=sum(refines))
+        _log(f"{label}: nq={nq} np={np_} engine={engine} B={m._b_eff} "
+             f"score={res.score:.4f} trials={res.n_trials} steps={steps} "
+             f"search_s={st['search_seconds']:.3f} mean_step_s="
+             f"{st['search_seconds'] / steps:.4f} compile_s="
+             f"{st['compile_seconds']:.3f} wall_s={wall:.3f} rotDiff="
+             f"{rot_diff:.4f} trDiff={tr_diff:.4f} band_cells="
+             f"{row['band_cells']} (occupied {row['band_m_real']}, pc "
+             f"{row['band_pc']}) band_cell_size={row['band_cell_size']} "
+             f"band_member_dropped={row['band_member_dropped']} index: "
+             f"host {row['index_host_ms']:.1f} ms, table sort "
+             f"{row['index_sort_ms']:.2f} ms; pairs_overflow="
+             f"{st['pairs_overflow']} quads_overflow={st['quads_overflow']} "
+             f"cell_dropped={st['cell_dropped']} escalated_to="
+             f"{st.get('escalated_to', '-')} K1 launches="
+             f"{counts['lcp_min_d2_within']} peak_MiB={peak:.1f} refines="
+             f"{len(refines)} ({sum(refines):.3f} s, warm-ups included)")
+        if engine != "banded" or idx is None or not st["band_cells"] > 0:
+            raise SystemExit(f"{label} resolved the {engine!r} engine")
+        if (want_nq, want_np) != (None, None) and (nq, np_) != (want_nq,
+                                                                want_np):
+            raise SystemExit(f"{label}: nq={nq} np={np_}, wanted "
+                             f"{want_nq} and {want_np}")
+        if counts["lcp_min_d2_within"] <= 0 or counts["rowcap_capture"]:
+            raise SystemExit(f"{label}: K1 launched "
+                             f"{counts['lcp_min_d2_within']} times, K2 "
+                             f"{counts['rowcap_capture']} (wanted none)")
+        if not (res.score >= 0.7 and rot_diff <= 0.2 and tr_diff <= 0.1
+                and st["search_seconds"] <= o.max_time_seconds):
+            raise SystemExit(f"{label} registration missed its gates")
+        # a step's time, outside the path
+        prof = _step_profile(m._run_step, 10_000)
+        _log(f"{label} step (T={m._b_eff}): " + _profile_text(prof))
+        row.update(prof)
+        numbers[label] = row
+        del m, matchers
+        torch.cuda.empty_cache()
+
+    # 5k. the headline's registration forced onto the banded engine
+    banded_run("banded", opts.replace(pair_engine="banded"), P, Q)
+
+    # 5l. the 1M pair at nq = 131,072: "auto" resolves to banded. The
+    # search runs to the threshold or the 120 s budget: the reference's
+    # trial estimate for overlap 0.7 (139 trials a rung, two rungs at
+    # this nq) runs out before this seed's first good base at this
+    # sample count
+    lopts = s4.Options(delta=0.005, sample_size=131072, max_time_seconds=120,
+                       random_seed=5, use_full_time_budget=True
+                       ).configure_overlap(0.7, 0.7)
+    banded_run("banded-1M", lopts, upos, uq, 131072, 530_895)
+
+    # the rowcap engine on 5l's samples: K2 at n = 131,072 (no gate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = s4.MatchSuper4PCS(lopts.replace(pair_engine="rowcap"), device="cuda")
+    t0 = time.perf_counter()
+    m._init(s4.PointCloud(upos), s4.PointCloud(uq))
+    init_s = time.perf_counter() - t0
+    prof = _step_profile(m._run_step, 0)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    row = dict(nq=int(m._d_q_pos.shape[0]), init_s=init_s, peak_mib=peak, k2_ms_per_edge=prof["k2_ms"] / 2, **prof)
+    _log(f"rowcap-1M (no gate): nq={row['nq']} B={m._b_eff} k_pairs="
+         f"{m._k_pairs} init (with its warm-up step) {init_s:.3f} s; "
+         f"K2 {row['k2_ms_per_edge']:.3f} ms per edge (T={m._b_eff}); "
+         + _profile_text(prof) + f"; peak_MiB={peak:.1f}; banded step "
+         f"{numbers['banded-1M']['step_wall_ms']:.1f} ms, peak_MiB "
+         f"{numbers['banded-1M']['peak_mib']:.1f}")
+    numbers["rowcap-1M"] = row
+    del m
+    torch.cuda.empty_cache()
     return numbers
 
 
@@ -1214,7 +1442,26 @@ def main() -> int:
          f"{plain_ms:.3f} ms bound {bound_ms:.3f} ms ({bound_by})")
     if not torch.equal(got, ref):
         raise SystemExit("min_sq_dists disagrees with its plain version")
-    del upos, uq, up, uqp, got, ref
+    # the library yardstick at the 1M shapes: one torch.cdist + amin
+    # over the whole (M, Np) matrix (34.8 GB), for K4a (the queries as
+    # they are) and for K3 at C = 1 (the queries moved by one candidate)
+    library_1m = {}
+    for name, qs in (("K4a", uqp), ("K3 C=1", torch.stack(
+            k1._transformed(tr[:1], uqp), dim=-1)[0].contiguous())):
+        want = (ref if name == "K4a"
+                else k1.lcp_min_d2_plain(tr[:1], uqp, up)[0])
+        lib = torch.cdist(qs, up).amin(-1)
+        lib_err = float((lib * lib - want).abs().max())
+        del lib
+        lib_ms = _cuda_ms(lambda: torch.cdist(qs, up).amin(-1), reps=2)
+        torch.cuda.empty_cache()
+        library_1m[name] = dict(shape=f"M={qs.shape[0]} np={up.shape[0]}",
+                                ms=lib_ms, max_abs_err=lib_err)
+        gb = 4 * qs.shape[0] * up.shape[0] / 1e9
+        _log(f"library {name}: torch.cdist(q, p).amin(-1) at M="
+             f"{qs.shape[0]} np={up.shape[0]} ({gb:.1f} GB matrix): "
+             f"{lib_ms:.3f} ms (max|cdist^2 - plain| {lib_err:.3e})")
+    del up, uqp, got, ref
 
     # 4. K2 against its plain version (edge 0 with the join hash)
     gen = torch.Generator(device=dev)
@@ -1514,8 +1761,16 @@ def main() -> int:
     file_numbers.update(_sequence_paths(P, s4, counters, by_path))
     # 5h-5i. similarity mode
     file_numbers.update(_scale_paths(s4, counters, by_path))
-    # 5j. register_batch on four pairs at the headline's width
+    # 5j. register_batch on four pairs at the headline's width, on the
+    # rowcap engine and on the banded engine
     file_numbers["batch"] = _batch_path(P, Q, s4, counters, by_path)
+    file_numbers["batch-banded"] = _batch_path(P, Q, s4, counters, by_path,
+                                               engine="banded")
+    # 5k-5l. the banded engine at the headline's width and at nq =
+    # 131,072 on the 1M pair; the rowcap engine there, measured
+    file_numbers.update(_banded_paths(P, Q, upos, uq, opts, s4, counters,
+                                      by_path))
+    del upos, uq
 
     # 6. the 500-point known-pose recipe (dense engine, K1 only: its
     # pruned verify)
@@ -1621,7 +1876,7 @@ def main() -> int:
                        f"_min_dist_stream_kernel)"),
              launches=sum(launches("lcp_min_d2").values()),
              launches_by_path=launches("lcp_min_d2"),
-             max_abs_err=k1_err, **k1_row),
+             max_abs_err=k1_err, library_1m=library_1m, **k1_row),
         dict(name="rowcap_capture", route="cuda",
              source="super4pcs_tpu_torch/csrc/rowcap.cu",
              replaces=(f"{rk}:115 (K2 _kernel + _kernel_body :202); "

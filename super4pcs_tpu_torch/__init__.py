@@ -6,8 +6,11 @@ the same algorithm, options and results as the JAX package
 PyTorch; the two TPU kernels of the main path are hand-written CUDA
 kernels (``csrc/``, built with nvcc at first use): the LCP min-distance
 kernel (``kernels/lcp.py``) and the band-capture kernel
-(``kernels/rowcap.py``). On CPU tensors every kernel wrapper runs its
-plain PyTorch version instead. Entry points: :func:`register`, the
+(``kernels/rowcap.py``). Above nq = 65536 the banded pair engine
+(``ops/band_extract.py``, torch ops over a once-per-run sorted
+cell-pair table) extracts the pairs instead of the capture kernel. On
+CPU tensors every kernel wrapper runs its plain PyTorch version
+instead. Entry points: :func:`register`, the
 matchers, :func:`register_sequence`, and the ``super4pcs-torch`` CLI
 (``cli.py``, reading and writing files through ``io/``).
 

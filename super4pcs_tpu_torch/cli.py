@@ -50,8 +50,11 @@ DEFAULT_OBJ_OUTPUT = "output.obj"   # ref:demo-utils.h:65
 
 #: Options fields settable via ``--tpu-opts`` — the tuning surface
 #: only; reference-CLI parameters keep their dedicated flags. The JAX
-#: package's set, so a command line means the same in both packages.
+#: package's set, so a command line means the same in both packages,
+#: plus ``pair_engine`` (the JAX package's CLI takes no engine: there a
+#: ``pair_engine=...`` item is an invalid flag value).
 TPU_OPT_KEYS = frozenset({
+    "pair_engine",
     "bases_per_step", "max_pairs", "max_quads", "max_candidates",
     "pair_row_cap", "pair_recall_target", "cone_cos_tolerance",
     "n_triangle_trials", "search_delta_factor",

@@ -9,8 +9,9 @@ PyTorch counterpart of ``super4pcs_tpu.matcher``, the re-architecture of
   explicit batch over a flat trial axis (the JAX package's ``vmap``
   over bases, and over pairs for parallel/batch.py, becomes a batch
   dimension: the rowcap engine captures every trial's edge in one
-  kernel launch and sorts every trial's join table in one sort; the
-  dense and allpairs engines loop over trials), then scores every
+  kernel launch, the banded engine extracts it in one call over the
+  run's band index, and both sort every trial's join table in one sort;
+  the dense and allpairs engines loop over trials), then scores every
   surviving candidate with the batched LCP kernel and takes an argmax
   per pair;
 - the anytime contract (ref:hpp:236-255) is a host loop around the
@@ -32,18 +33,21 @@ step at the wider factor), the two-steps-in-flight pipelining, the phase
 probes and the roofline model. In their place, on the card, one step
 and one refine run before the anytime clock starts (and again, off the
 clock, after an escalation), so the clock does not count the CUDA
-libraries' first calls or the verify's cell indexes. Not ported yet (they raise
-``NotImplementedError``): the banded engine, the rowcap engine in
-similarity mode (the JAX package's XLA ``approx_max_k`` capture), and
-bases-axis sharding (``mesh``). See ROADMAP.md.
+libraries' first calls or the verify's cell indexes. The banded engine's
+band index (ops/band_extract.py) is built once per run, before the
+clock, like the kernels. Not ported yet (they raise
+``NotImplementedError``): the rowcap engine in similarity mode (the JAX
+package's XLA ``approx_max_k`` capture) and bases-axis sharding
+(``mesh``). See ROADMAP.md.
 
 Randomness comes from a ``torch.Generator`` reseeded per step from
 ``(random_seed, step index)``, so a resumed run draws the trials an
 uninterrupted run would have; the draws differ from the JAX package's
 threefry streams, so runs of the two packages agree statistically, not
 trial for trial. Similarity mode draws two more numbers per base (the
-dense capture's row rotation and the strided probe walk's rotation)
-after the base draws, so a rigid run's draws do not depend on it.
+dense capture's row rotation and the strided probe walk's rotation),
+and the banded engine one (its band window's rotation), after the base
+draws, so the other engines' draws do not depend on them.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from .kernels import rowcap as rowcap_kernel
 from .options import (Options, DISTANCE_FACTOR, K_LARGE_NUMBER,
                       K_NUMBER_OF_DIAMETER_TRIALS)
 from .ops import congruent, geometry, lcp, refine, sampling, select
+from .ops.band_extract import build_band_index, extract_pairs_banded
 from .ops.masking import masked_indices
 from .ops.pairs import (PairFilterConfig, extract_pairs,
                         extract_pairs_dense_rowcap)
@@ -108,20 +113,19 @@ def resolve_bases_per_step(opts: Options, nq: int) -> int:
 
 def resolve_pair_engine(opts: Options, nq: int) -> str:
     """Effective pair-extraction engine (see Options.pair_engine): dense
-    masking up to nq = 2048, the rowcap capture kernel up to 65536 (the
-    JAX package's thresholds on its kernel path). In similarity mode the
-    distance filter is off and every ordered pair is a candidate, so
-    "auto" gives dense up to 2048 and the allpairs implicit table above
-    (no capture at all). The banded engine, and rowcap in similarity
-    mode (the JAX package's XLA capture), are not ported and raise."""
+    masking up to nq = 2048, the rowcap capture kernel up to 65536, the
+    banded sorted-table engine above (the JAX package's thresholds on
+    its kernel path). In similarity mode the distance filter is off and
+    every ordered pair is a candidate, so "auto" gives dense up to 2048
+    and the allpairs implicit table above (no capture at all). Rowcap in
+    similarity mode (the JAX package's XLA capture) is not ported and
+    raises."""
     e = opts.pair_engine
     if e == "auto":
         if opts.estimate_scale:
             return "dense" if nq <= 2048 else "allpairs"
         e = ("dense" if nq <= 2048
              else ("rowcap" if nq <= 65536 else "banded"))
-    if e == "banded":
-        raise _not_ported(f"the 'banded' pair engine (nq = {nq})")
     if e == "rowcap" and opts.estimate_scale:
         raise _not_ported("the 'rowcap' pair engine in similarity mode "
                           "(the JAX package's XLA approx_max_k capture)")
@@ -134,34 +138,43 @@ def _step_seed(random_seed: int, step_idx: int) -> int:
     return (int(random_seed) * 1_000_003 + int(step_idx)) % (1 << 63)
 
 
-def _build_try_bases(opts: Options, nq: int, cone_tol: float):
+def _build_try_bases(opts: Options, nq: int, cone_tol: float,
+                     band_index=None):
     """Build the batched trial function of one step.
+
+    ``band_index``: the run's ``ops.band_extract.BandIndex`` of Q (one
+    per cloud pair, batched, for G pairs) when the engine is "banded";
+    its cell and occupancy counts size the engine's window.
 
     Returns (try_bases, (k_pairs, k_quads, n_cands)), where
     ``try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
-    q_bounds, scale_draws)`` runs one trial per base draw of G cloud
+    q_bounds, rot_draws)`` runs one trial per base draw of G cloud
     pairs (the clouds (G, n, .), the draws (G, B, ...), see
     ops/select.py), over the flat trial axis T = G * B, trial ``t`` on
     pair ``t // B``; ``q_bounds`` are the Q tile bounds of the capture
     kernel's tile-pair rejection (``rowcap.reject_bounds``, (G, ...)),
-    or None; ``scale_draws`` (similarity mode only) are each trial's
-    dense-capture row rotation in [0, nq) and probe-walk rotation in
-    [0, k_pairs), two (T,) tensors.
+    or None; ``rot_draws`` are each trial's rotations, (T,) tensors: in
+    similarity mode the dense capture's row rotation in [0, nq) and the
+    probe walk's in [0, k_pairs), on the banded engine its window's in
+    [0, nq); else None.
 
-    The rowcap engine runs every trial at once: one capture launch per
-    base edge (K2's trial axis) and one join sort for all T tables. The
-    dense and allpairs engines run their trials one at a time (an
-    allpairs table holds nq^2 rows).
+    The rowcap and banded engines run every trial at once: one capture
+    launch (banded: one extraction call) per base edge and one join
+    sort for all T tables. The dense and allpairs engines run their
+    trials one at a time (an allpairs table holds nq^2 rows).
     """
     if opts.bases_per_step is None:
         opts = opts.replace(bases_per_step=resolve_bases_per_step(opts, nq))
     engine = resolve_pair_engine(opts, nq)
+    if engine == "banded" and band_index is None:
+        raise ValueError("the banded engine needs the run's band index")
     # Capacity defaults (the JAX package's block): pair counts scale ~
     # nq^2 * shell fraction; the rowcap engine captures 64 * nq, the
-    # dense one 16 * nq (widened under coarse search); quads ~8 * nq up
-    # to 8192. Similarity mode has no distance band: every ordered pair
-    # is a hit, so the dense engine holds all nq (nq - 1) of them and
-    # the allpairs table is the full nq^2 enumeration.
+    # dense and banded ones 16 * nq (the banded engine's candidates are
+    # band-filtered before capture; widened under coarse search); quads
+    # ~8 * nq up to 8192. Similarity mode has no distance band: every
+    # ordered pair is a hit, so the dense engine holds all nq (nq - 1)
+    # of them and the allpairs table is the full nq^2 enumeration.
     if engine == "allpairs":
         if not opts.estimate_scale:
             raise ValueError("pair_engine='allpairs' requires "
@@ -181,7 +194,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
     elif opts.estimate_scale and nq <= 2048:
         k_pairs = _round_up(nq * (nq - 1), 128)
     else:
-        per_nq = 64 if nq > 2048 else 16
+        per_nq = 64 if (nq > 2048 and engine != "banded") else 16
         k_pairs = _round_up(
             min(nq * nq,
                 max(int(per_nq * nq
@@ -255,6 +268,43 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
                              device=pos.device)
             z = torch.zeros_like(cnt)
             return (None, all_valid, cnt, z), (None, all_valid, cnt, z)
+    elif engine == "banded":
+        join_row_cap = None
+        pc = band_index.pc
+        # two-level capture sizing (the JAX package's): each window
+        # entry's slot budget ~2x the mean occupancy product bounds the
+        # padding, and the window spreads the expansion budget over as
+        # much of the band as it can expand
+        mean_occ = max(
+            1.0, min(band_index.n / max(band_index.m, 1), float(pc)))
+        es_target = max(4, int(2.0 * mean_occ * mean_occ))
+
+        def band_sizing(cap):
+            ec = opts.band_expand_cap or _round_up(4 * cap, 128)
+            cp = opts.band_cell_pair_cap or _round_up(
+                min(max(ec // es_target, 2048), 262144), 128)
+            return cp, min(ec, cp * pc * pc)
+
+        # asymmetric capacities: the join hashes the first edge's pairs
+        # (its whole table feeds a trial's success) but probes only
+        # join_q_budget second-edge pairs, so the second edge captures
+        # ~4x that budget
+        jqb = min(opts.join_q_budget or 8192, k_pairs)
+        k2_cap = min(k_pairs, _round_up(4 * jqb, 128))
+        cp1, ec1 = band_sizing(k_pairs)
+        cp2, ec2 = band_sizing(k2_cap)
+
+        def extract_both(pos, normal, rgb, bpos, bnorm, brgb, inv1,
+                         bounds, off):
+            # every trial of the step in one call per edge
+            return (extract_pairs_banded(
+                        band_index, pos, normal, rgb, bpos, bnorm, brgb,
+                        0, 1, eps_pairs, cfg, cp1, rot_offset=off,
+                        capacity=k_pairs, expand_cap=ec1),
+                    extract_pairs_banded(
+                        band_index, pos, normal, rgb, bpos, bnorm, brgb,
+                        2, 3, eps_pairs, cfg, cp2, rot_offset=off,
+                        capacity=k2_cap, expand_cap=ec2))
     else:
         join_row_cap = opts.pair_row_cap or min(nq, max(32, _round_up(
             5 * k_pairs // (2 * nq), 32)))
@@ -306,7 +356,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
                    else q_rots if t is None else q_rots[t]))
 
     def try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-                  q_rgb, q_bounds=None, scale_draws=None):
+                  q_rgb, q_bounds=None, rot_draws=None):
         ids, inv1, inv2, bvalid = select.select_base(p_pos, diam, *draws)
         n_sets, nb = ids.shape[:2]
         nt = n_sets * nb
@@ -324,20 +374,24 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
         n2 = torch.clamp(torch.linalg.vector_norm(s2, dim=-1), min=1e-30)
         cos_alpha = ((s1 / n1[:, None]) * (s2 / n2[:, None])).sum(-1)
         offs = q_rots = None
+        if rot_draws is not None:
+            offs = rot_draws[0]
         if est_scale:
             # the MULTISCALE ratio gate of the joins: d1 / d2 of the base
             seg_ratio = n1 / n2
-            offs, q_rots = scale_draws
+            q_rots = rot_draws[1]
         gate = (dict(seg_ratio=seg_ratio,
                      scale_band=geometry.SCALE_RATIO_DEV)
                 if est_scale else {})
         nq_ = q_pos.shape[1]
         set_of = torch.arange(nt, device=dev) // nb
 
-        if engine == "rowcap":
-            (pairs1, v1, c1, d1), (pairs2, v2, c2, d2), thash = \
-                extract_both(q_pos, q_norm, q_rgb, base_pos, base_norm,
-                             base_rgb, inv1, q_bounds, None)
+        if engine in ("rowcap", "banded"):
+            ext = extract_both(q_pos, q_norm, q_rgb, base_pos, base_norm,
+                               base_rgb, inv1, q_bounds, offs)
+            (pairs1, v1, c1, d1), (pairs2, v2, c2, d2) = ext[:2]
+            # the capture kernel emits the join hash of its table
+            thash = ext[2] if len(ext) > 2 else None
             quads, qvalid, qcount, qdropped, q_sub = \
                 congruent.find_congruent_quads_grid(
                     q_pos, pairs1, v1, pairs2, v2, inv1, inv2, dist_thr,
@@ -398,8 +452,10 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float):
     return try_bases, (k_pairs, k_quads, n_cands)
 
 
-def build_step(opts: Options, nq: int, cone_tol: float):
-    """Build the RANSAC device step over G cloud pairs.
+def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
+    """Build the RANSAC device step over G cloud pairs (``band_index``:
+    the run's band index of the G pairs' Q when the engine is
+    "banded", see :func:`_build_try_bases`).
 
     ``step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
     q_bounds=None, p_index=None)`` takes G pairs' clouds (``p_*`` (G,
@@ -417,8 +473,9 @@ def build_step(opts: Options, nq: int, cone_tol: float):
     """
     if opts.bases_per_step is None:
         opts = opts.replace(bases_per_step=resolve_bases_per_step(opts, nq))
-    try_bases, caps = _build_try_bases(opts, nq, cone_tol)
+    try_bases, caps = _build_try_bases(opts, nq, cone_tol, band_index)
     k_pairs, k_quads, n_cands = caps
+    banded = resolve_pair_engine(opts, nq) == "banded"
     b = opts.bases_per_step
     delta = opts.delta
     # coarse-search candidates rank at the search tolerance; the
@@ -428,24 +485,27 @@ def build_step(opts: Options, nq: int, cone_tol: float):
     def step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
              q_bounds=None, p_index=None):
         n_sets = p_pos.shape[0]
-        draws, scale_draws = [], []
+        draws, rot_draws = [], []
         for _ in range(n_sets):
             draws.append(select.draw_base_indices(
                 gen, p_pos.shape[1], b, opts.n_triangle_trials))
-            # similarity mode's two rotations per base, drawn after the
-            # pair's base draws so a rigid step's draws are the same
-            # without them
+            # the rotations per base (similarity mode's two, the banded
+            # window's one), drawn after the pair's base draws so the
+            # other engines' draws are the same without them
+            rots = []
+            if opts.estimate_scale or banded:
+                rots.append(torch.randint(0, nq, (b,), generator=gen,
+                                          device=gen.device))
             if opts.estimate_scale:
-                scale_draws.append((
-                    torch.randint(0, nq, (b,), generator=gen,
-                                  device=gen.device),
-                    torch.randint(0, k_pairs, (b,), generator=gen,
-                                  device=gen.device)))
+                rots.append(torch.randint(0, k_pairs, (b,), generator=gen,
+                                          device=gen.device))
+            if rots:
+                rot_draws.append(rots)
         draws = tuple(torch.stack(d) for d in zip(*draws))
-        scale_draws = (tuple(torch.cat(d) for d in zip(*scale_draws))
-                       if scale_draws else None)
+        rot_draws = (tuple(torch.cat(d) for d in zip(*rot_draws))
+                     if rot_draws else None)
         tb = try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-                       q_rgb, q_bounds, scale_draws)
+                       q_rgb, q_bounds, rot_draws)
         flat_t = tb["transform"].reshape(n_sets, -1, 4, 4)
         flat_v = tb["cvalid"].reshape(n_sets, -1)
         # compact each pair's valid candidates before the (expensive)
@@ -814,9 +874,19 @@ class Match4PCSBase:
 
         # P's cell indexes of the verify, built once per run and radius
         self._p_index = lcp.VerifyIndex(self._d_p_pos)
+        engine = resolve_pair_engine(self._opts_eff(), len(sampled_q))
+        rowcap = engine == "rowcap"
+        # the banded engine's once-per-run sorted cell-pair table over the
+        # centered Q samples (ops/band_extract.py), built before the
+        # clock like the kernels
+        self._band_index = idx = None
+        if engine == "banded":
+            self._band_index = idx = build_band_index(
+                q_pos, opts.delta, cell_budget=opts.band_cell_budget,
+                device=dev)
+            self._stats.update(band_cells=idx.m, band_cell_size=float(idx.g),
+                               band_member_dropped=idx.member_dropped)
         self._build_step()
-        rowcap = (resolve_pair_engine(self._opts_eff(), len(sampled_q))
-                  == "rowcap")
         # the Q tile bounds of the capture's tile-pair rejection: Q is
         # fixed for the run, so they are computed once
         self._q_bounds = (rowcap_kernel.reject_bounds(self._d_q_pos[None])
@@ -833,7 +903,8 @@ class Match4PCSBase:
             if rowcap:
                 rowcap_kernel._lib()
             self._warm()
-        self._stats["compile_seconds"] = time.perf_counter() - tc
+        self._stats["compile_seconds"] = time.perf_counter() - tc + (
+            0.0 if idx is None else idx.host_seconds + idx.sort_seconds)
 
         # initial verification of the identity transform (ref:hpp:201)
         tv = time.perf_counter()
@@ -881,7 +952,7 @@ class Match4PCSBase:
         if self._b_eff is None:
             self._b_eff = resolve_bases_per_step(self.options, nq)
         self._step_fn, caps = build_step(self._opts_eff(), nq,
-                                         self._cone_mode)
+                                         self._cone_mode, self._band_index)
         self._k_pairs, self._k_quads, self._n_cands = caps
 
     def _step_args(self):

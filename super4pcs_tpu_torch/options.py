@@ -23,8 +23,8 @@ ported; see ROADMAP.md):
   multi-step dispatch and bases-axis sharding are not ported.
 - ``phase_timing``: the telescoped phase probes are not ported.
 
-``pair_engine="banded"``, and "rowcap" with ``estimate_scale=True``,
-raise ``NotImplementedError`` in the matcher.
+``pair_engine="rowcap"`` with ``estimate_scale=True`` raises
+``NotImplementedError`` in the matcher.
 """
 
 from __future__ import annotations
@@ -144,19 +144,22 @@ class Options:
     #: nq = 2048) gives the pose; the result is T_fine @ diag(s, s, s,
     #: 1). False cuts Q to the ceiling instead.
     scale_hierarchical: bool = True
-    #: Pair-extraction engine: "auto" picks dense masking (nq <= 2048)
-    #: or the rowcap capture kernel (nq <= 65536); in similarity mode
+    #: Pair-extraction engine: "auto" picks dense masking (nq <= 2048),
+    #: the rowcap capture kernel (nq <= 65536) or the banded sorted
+    #: cell-pair table above (ops/band_extract.py); in similarity mode
     #: dense (nq <= 2048) or "allpairs", the implicit table of every
     #: ordered pair (no capture; needs estimate_scale). "dense",
-    #: "rowcap" and "allpairs" pin one. "banded" (the JAX package's
-    #: engine above nq = 65536), and "rowcap" in similarity mode (the JAX
-    #: package's XLA capture), are not ported and raise.
+    #: "rowcap", "banded" and "allpairs" pin one. "rowcap" in similarity
+    #: mode (the JAX package's XLA capture) is not ported and raises.
     pair_engine: str = "auto"
-    #: Occupied-cell budget of the banded engine (not ported).
+    #: Occupied-cell budget of the banded engine's index: the cell size
+    #: doubles from 2 * delta until the occupied cells fit.
     band_cell_budget: int = 8192
-    #: Band-window size of the banded engine (not ported).
+    #: Band-window size (table entries per base edge) of the banded
+    #: engine; None sizes it from the expansion budget.
     band_cell_pair_cap: Optional[int] = None
-    #: Candidate slots per base edge of the banded engine (not ported).
+    #: Candidate slots per base edge of the banded engine; None gives
+    #: 4x the edge's pair capacity.
     band_expand_cap: Optional[int] = None
     #: Force the grid-hash congruent join even where the dense K x K
     #: oracle would be chosen (small nq, in-budget mask). The dense

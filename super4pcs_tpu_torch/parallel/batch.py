@@ -40,9 +40,14 @@ step and one refine run before the clock starts, their outputs thrown
 away, and count in ``compile_seconds``: the same off-clock warm-up as
 the single-pair matcher (the CUDA libraries' first calls and the
 verify's cell indexes), where the JAX package compiles inside its first
-timed step. Not ported (they raise ``NotImplementedError``, see
-ROADMAP.md): ``mesh=`` (pairs sharded over devices) and the banded pair
-engine.
+timed step.
+
+When the engine resolved for the batch's largest Q is "banded", each
+pair's band index (ops/band_extract.py) is built once per run, padded
+to one shape and stacked (``build_batched_band_index``, sentinel rows
+left out), and trial ``t`` of the flat trial axis reads its pair's
+index. Not ported (it raises ``NotImplementedError``, see ROADMAP.md):
+``mesh=`` (pairs sharded over devices).
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from ..matcher import (Match4PCS, MatchSuper4PCS, RegistrationResult,
                        resolve_bases_per_step, resolve_pair_engine)
 from ..options import K_NUMBER_OF_DIAMETER_TRIALS, Options
 from ..ops import geometry, lcp, refine, sampling
+from ..ops.band_extract import build_batched_band_index
 from ..visitor import DummyTransformVisitor, visitor_needs_global
 
 # Q-side sentinel coordinate — beyond ops.lcp.Q_PAD so the masked LCP
@@ -133,7 +139,6 @@ class BatchRun:
         if opts.bases_per_step is None:
             opts = self.opts = opts.replace(
                 bases_per_step=resolve_bases_per_step(opts, self.nq_max))
-        # the banded engine is not ported: resolving it raises
         self.engine = resolve_pair_engine(opts, self.nq_max)
         p_pos = np.stack([_repeat_pad(pp.pos - cp, np_max)
                           for (pp, cp), _ in preps])
@@ -166,8 +171,12 @@ class BatchRun:
                             _K_MIN_TRIALS)
 
         tc = time.perf_counter()
-        self.step, (_, self.k_quads, _) = build_step(opts, self.nq_max,
-                                                     cone_tol)
+        # the banded engine's per-pair indexes, one stacked index
+        self.band_index = (build_batched_band_index(
+            list(q_pos), opts.delta, cell_budget=opts.band_cell_budget,
+            device=dev) if self.engine == "banded" else None)
+        self.step, (_, self.k_quads, _) = build_step(
+            opts, self.nq_max, cone_tol, self.band_index)
         self.arrays = tuple(self.put(a) for a in (
             p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb))
         self.diam = self.put(diams)
@@ -470,6 +479,9 @@ def register_batch(
             q_padded=int(nq_max - nq_real[i]),
             batch_state=batch_state,
         )
+        if run.band_index is not None:
+            stats.update(band_cells=run.band_index.m,
+                         band_member_dropped=run.band_index.member_dropped)
         results.append(RegistrationResult(
             score=float(best["lcp"][i]), transform=mat,
             transformed_q=moved, n_trials=trial,

@@ -523,12 +523,11 @@ def test_batch_straggler_escalation(rng, make_transform):
 
 
 def test_register_batch_refuses_mesh_and_banded(rng, make_transform):
+    # mesh= is not ported; the banded engine is (its register_batch test
+    # is in tests/test_torch_band_extract.py)
     pos, q, _ = make_pair(rng, make_transform, n=60)
     pairs = [(_pc(pos), _pc(q))] * 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         register_batch(pairs, s4t.Options(delta=0.05), mesh=object(),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        register_batch(pairs, s4t.Options(delta=0.05, pair_engine="banded"),
                        device="cpu")
     assert register_batch([], device="cpu") == []

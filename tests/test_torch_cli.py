@@ -88,7 +88,8 @@ def test_get_args_matches_jax(argv, capsys):
     "delta=1", "nope=3", "bases_per_step", "phase_timing=maybe",
     "refine_iterations=none", "max_pairs=1.5"])
 def test_parse_tpu_opts_matches_jax(spec):
-    assert tcli.TPU_OPT_KEYS == jcli.TPU_OPT_KEYS
+    # the port's CLI also takes the pair engine
+    assert tcli.TPU_OPT_KEYS == jcli.TPU_OPT_KEYS | {"pair_engine"}
     try:
         want = jcli.parse_tpu_opts(spec)
     except ValueError:

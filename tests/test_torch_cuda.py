@@ -413,3 +413,84 @@ def test_step_over_two_pairs_on_the_card(dev):
                    ops_lcp.VerifyIndex(pos[g:g + 1]))
         for k, v in one.items():
             assert torch.equal(both[k][g], v[0]), k
+
+
+def test_banded_extraction_on_the_card_equals_cpu(dev):
+    """The banded engine's index built on the card equals the CPU's, and
+    a T = 4 extraction (window overflow, rotations, all filters) on the
+    card equals the CPU's per trial: bit for bit with capacity
+    compaction and no angle gate; with the angle gate, in the raw slot
+    layout, outside 1e-6 rad of the gate (torch.acos on the two
+    devices may differ in the last bit)."""
+    from super4pcs_tpu_torch.ops import band_extract as tb
+    from super4pcs_tpu_torch.ops.pairs import PairFilterConfig
+    rng = np.random.default_rng(17)
+    n = 4000
+    pos = next(_kd_sphere(rng, n, "cpu"))
+    normal = pos / torch.linalg.vector_norm(pos, dim=1, keepdim=True)
+    rgb = torch.as_tensor(rng.uniform(0, 1, (n, 3)), dtype=torch.float32)
+    ci = tb.build_band_index(pos.numpy(), 0.02)
+    gi = tb.build_band_index(pos.numpy(), 0.02, device=dev)
+    for k in ("members", "occ", "centers", "sorted_pair", "g"):
+        assert torch.equal(getattr(gi, k).cpu(), getattr(ci, k)), k
+    bases = torch.as_tensor(np.stack([rng.choice(n, 4, replace=False)
+                                      for _ in range(4)]))
+    offs = torch.tensor([0, 17, 977, 31415])
+    filt = dict(max_normal_difference=30.0, max_color_distance=0.6,
+                max_translation_distance=1.5)
+    for cfg, capacity in ((PairFilterConfig(**filt), 20000),
+                          (PairFilterConfig(max_angle=70.0, **filt), None)):
+        outs = []
+        for idx, d in ((ci, "cpu"), (gi, dev)):
+            a = [t.to(d) for t in (pos, normal, rgb)]
+            outs.append([o.cpu() for o in tb.extract_pairs_banded(
+                idx, *a, a[0][bases], a[1][bases], a[2][bases], 0, 1, 0.04,
+                cfg, 2048, rot_offset=offs.to(d), capacity=capacity,
+                expand_cap=2048 * 24)])
+        (cp, cv, cc, cd), (gp, gv, gc, gd) = outs
+        assert torch.equal(gp, cp) and torch.equal(gd, cd)
+        assert int(cd.min()) > 0 and int(cc.min()) > 0
+        if capacity is not None:
+            assert torch.equal(gv, cv) and torch.equal(gc, cc)
+            continue
+        p = pos.double()
+        for t in range(4):
+            seg = p[bases[t, 1]] - p[bases[t, 0]]
+            d = p[cp[t, :, 1].long()] - p[cp[t, :, 0].long()]
+            ang = torch.arccos(torch.clamp(
+                (d @ seg) / seg.norm() / d.norm(dim=1).clamp(min=1e-30),
+                -1.0, 1.0))
+            edge = (ang - np.deg2rad(70.0)).abs() <= 1e-6
+            assert not ((gv[t] != cv[t]) & ~edge).any()
+            assert int(gc[t]) == int(gv[t].sum())
+
+
+def test_banded_registration_on_the_card(dev):
+    """Phase 5k's options resolve to the banded engine; the recipe with
+    ``pair_engine="banded"`` on the card builds its index there, launches
+    the verify kernel and meets the recipe's gates."""
+    from super4pcs_tpu_torch import matcher
+    o5k = s4t.Options(delta=0.01, sample_size=8192, pair_engine="banded")
+    assert matcher.resolve_pair_engine(o5k, 8192) == "banded"
+    rng = np.random.default_rng(11)
+    v = rng.normal(size=(500, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    target = (v * bump[:, None]).astype(np.float32)
+    ang = 1.1
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    source = (target - np.array([.4, -.2, .7], np.float32)) @ R
+    opts = s4t.Options(delta=0.05, sample_size=500, max_time_seconds=30,
+                       pair_engine="banded").configure_overlap(0.9)
+    before = k1.lcp_min_d2_within.launches
+    m = s4t.MatchSuper4PCS(opts, device=dev)
+    res = m.compute_transformation(s4t.PointCloud(target),
+                                   s4t.PointCloud(source))
+    assert m._band_index.sorted_pair.device.type == "cuda"
+    assert res.stats["band_cells"] > 0
+    moved = source @ res.transform[:3, :3].T + res.transform[:3, 3]
+    assert res.score > 0.95
+    assert np.median(np.linalg.norm(moved - target, axis=1)) < 0.05
+    assert k1.lcp_min_d2_within.launches > before

@@ -198,11 +198,16 @@ def test_resume_from_jax_state(recipe):
 
 def test_not_ported_paths_raise():
     pts = s4t.PointCloud(_bumpy(np.random.default_rng(0), 100))
-    with pytest.raises(NotImplementedError):
-        s4t.MatchSuper4PCS(s4t.Options(delta=0.05, pair_engine="banded"),
-                           device="cpu").compute_transformation(pts, pts)
+    # the banded engine is ported (tests/test_torch_band_extract.py): a
+    # self-match starts at LCP 1 and returns at once, with its index
+    banded = s4t.MatchSuper4PCS(s4t.Options(delta=0.05, pair_engine="banded"),
+                                device="cpu").compute_transformation(pts, pts)
+    assert banded.score == 1.0 and banded.stats["band_cells"] > 0
     with pytest.raises(NotImplementedError):
         s4t.MatchSuper4PCS(s4t.Options(), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError):
+        tmatcher.resolve_pair_engine(
+            s4t.Options(estimate_scale=True, pair_engine="rowcap"), 4096)
     # similarity mode is ported (tests/test_torch_scale.py): a self-match
     # starts at LCP 1 and returns at once
     same = s4t.MatchSuper4PCS(s4t.Options(delta=0.05, estimate_scale=True),
@@ -213,8 +218,7 @@ def test_not_ported_paths_raise():
         step, caps = tmatcher.build_step(
             s4t.Options(direction_bins="healpix"), nq, 0.3)
         assert callable(step) and len(caps) == 3
-    with pytest.raises(NotImplementedError):
-        tmatcher.resolve_pair_engine(s4t.Options(), 70000)
+    assert tmatcher.resolve_pair_engine(s4t.Options(), 70000) == "banded"
     empty = s4t.MatchSuper4PCS(s4t.Options(), device="cpu") \
         .compute_transformation(s4t.PointCloud(np.zeros((0, 3))), pts)
     assert empty.score == 1e9 and empty.n_trials == 0
