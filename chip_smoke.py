@@ -19,16 +19,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    count of the brute-force kernel; its largest error where both are
    finite and its non-finite mismatches, its time, the index build's
    device time, the pair tests it made and two bounds (the pruned work,
-   the brute force). The brute-force lcp_min_d2 against its plain version
-   at the exact and coarse shapes; torch.cdist + amin at the coarse
-   shape as the library yardstick;
+   the brute force). The brute force lcp_min_d2 (a branch-and-bound
+   over P's tiled index) equals its plain version (torch.equal), with
+   its time, its index build's, the pair and box tests per query of its
+   counting build, and two bounds (the work done, the brute force);
+   torch.cdist + amin at the coarse shape as the library yardstick;
 3b. K1 at the 1M config's shapes (bench.py:109-123 sampled as the
    matcher does: Np = 530,895, nq = 16384), which the TPU verified with
-   its streamed-P kernel K3: the brute force against its plain version,
-   lcp_min_d2_within at the exact stage against the contract; then
-   min_sq_dists (K1 with the identity transform, for K4a/K4b) against
-   its plain version; torch.cdist + amin over the whole 16384 x 530,895
-   matrix as the library yardstick of K4a and of K3 at C = 1;
+   its streamed-P kernel K3: the brute force at the exact stage (64 x
+   16384 x 530,895) equal to its plain version and printed as in 3,
+   lcp_min_d2_within there against the contract; then min_sq_dists
+   (the same kernel on the rows as they are, for K4a/K4b) the same way;
+   torch.cdist + amin over the whole 16384 x 530,895 matrix as the
+   library yardstick of K4a and of K3 at C = 1;
 4. K2 (band capture) against its plain version at n = 8192,
    row_cap = 160, edge 0 with the join hash: cols/rc/h bit-identical,
    then the same with tile-pair rejection on (the one-thread-per-row
@@ -157,11 +160,17 @@ HBM_BYTES_PER_S = 3.35e12
 #: the angle; a captured pair with the hash 15 (3 x sub, mul, add, div,
 #: floor)
 K1_OPS = 9
+#: fp32 operations per box test of the tiled brute force: per axis two
+#: sub and two max, then 3 mul, 2 add and the compare
+K1_BOX_OPS = 18
 K2_BAND_OPS = 10
 K2_FILTER_OPS = {"normals": 19, "rowcol": 2, "angle": 5}
 K2_HASH_OPS = 15
 
-K1_NAME = "lcp_min_d2_kernel"
+#: the tiled brute force's kernel, and its fill of the output (launched
+#: before it when the group list is split)
+K1B_NAME = "lcp_min_d2_tiles_kernel"
+K1B_FILL = "lcp_min_d2_tiles_fill_kernel"
 K1W_NAME = "lcp_min_d2_within_kernel"
 K2_NAME = "rowcap_capture_kernel"
 K2_NAMES = (K2_NAME, "rowcap_prep_kernel")
@@ -350,6 +359,53 @@ def _ultra_pair():
     uq = (upos @ _rot().T + np.float32(SHIFT)).astype(np.float32)
     uq += rng.normal(scale=0.001, size=uq.shape).astype(np.float32)
     return upos, uq
+
+
+def _headline_options(s4):
+    """The headline registration's options (delta 0.01, n = 8192)."""
+    return (s4.Options(delta=0.01, sample_size=8192, max_time_seconds=120,
+                       random_seed=1)
+            .configure_overlap(0.7, terminate_threshold=0.7))
+
+
+def _samples(s4, P, Q, delta, n, seed, dev):
+    """(P's samples, Q's samples in kd order), each centered, on ``dev``:
+    the clouds the matcher verifies against, as it forms them."""
+    import numpy as np
+    import torch
+    from super4pcs_tpu_torch.ops import sampling
+    rng = np.random.default_rng(seed)
+    sp = sampling.sample_for_matching(s4.PointCloud(P), delta, n, False, rng)
+    sq = sampling.sample_for_matching(s4.PointCloud(Q), delta, n, True, rng)
+    sq = sq.take(sampling.kd_argsort(sq.pos))
+    return (torch.as_tensor(sp.pos - sp.pos.mean(0), device=dev),
+            torch.as_tensor(sq.pos - sq.pos.mean(0), device=dev))
+
+
+def _ultra_samples(s4, upos, uq, dev):
+    """The 1M config's samples (delta 0.005, n = 16384, seed 5):
+    Np = 530,895 and nq = 16384, or a SystemExit."""
+    up, uqp = _samples(s4, upos, uq, 0.005, 16384, 5, dev)
+    if up.shape[0] != 530_895 or uqp.shape[0] != 16384:
+        raise SystemExit("the 1M config's samples changed size")
+    return up, uqp
+
+
+def _pose_sampler(dev, seed: int = 0):
+    """``near_pose(c)``: (c, 4, 4) candidates near the bench pairs' pose
+    (rotation part, in the centered frames), as the verify sees them once
+    a step finds the overlap, drawn in turn from one numpy generator: the
+    pruned kernels' work depends on where the queries land."""
+    import numpy as np
+    import torch
+    trng = np.random.default_rng(seed)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = _rot().T
+
+    def near_pose(c):
+        return torch.as_tensor(pose @ _random_transforms(trng, c, 0.05,
+                                                         0.02), device=dev)
+    return near_pose
 
 
 def _filtered_clouds(P, Q, s4):
@@ -1243,31 +1299,12 @@ def main() -> int:
 
     # the headline clouds and their samples, as the matcher forms them
     P, Q = bench.fine_delta_pair()
-    opts = (s4.Options(delta=0.01, sample_size=8192, max_time_seconds=120,
-                       random_seed=1)
-            .configure_overlap(0.7, terminate_threshold=0.7))
-    rng = np.random.default_rng(opts.random_seed)
-    sp = sampling.sample_for_matching(s4.PointCloud(P), opts.delta,
-                                      opts.sample_size, False, rng)
-    sq = sampling.sample_for_matching(s4.PointCloud(Q), opts.delta,
-                                      opts.sample_size, True, rng)
-    sq = sq.take(sampling.kd_argsort(sq.pos))
-    p_pos = torch.as_tensor(sp.pos - sp.pos.mean(0), device=dev)
-    q_pos = torch.as_tensor(sq.pos - sq.pos.mean(0), device=dev)
+    opts = _headline_options(s4)
+    p_pos, q_pos = _samples(s4, P, Q, opts.delta, opts.sample_size,
+                            opts.random_seed, dev)
     _log(f"headline samples: np={p_pos.shape[0]} nq={q_pos.shape[0]}")
-    eps2 = float(np.float32(opts.delta) ** 2)
-    trng = np.random.default_rng(0)
     k1_err = 0.0
-
-    # candidates near the pair's pose (rotation part, in the centered
-    # frames), as the verify sees them once a step finds the overlap:
-    # the pruned kernel's work depends on where the queries land
-    pose = np.eye(4, dtype=np.float32)
-    pose[:3, :3] = _rot().T
-
-    def near_pose(c):
-        return torch.as_tensor(pose @ _random_transforms(trng, c, 0.05,
-                                                         0.02), device=dev)
+    near_pose = _pose_sampler(dev)
 
     def check_within(label, tr, qs, ps, eps, ref, brute):
         """lcp_min_d2_within against its plain walk and the contract
@@ -1321,9 +1358,80 @@ def main() -> int:
                     index_build_ms=build_ms, pair_tests=tested,
                     brute_force_bound_ms=brute_ms), err, bad
 
+    brute_rows = {}
+
+    def check_tiles(label, tr, qs, ps, ref, plain_ms):
+        """The tiled brute force (``tr`` None: min_sq_dists) against its
+        plain version's ``ref``, bit for bit, with P's index built
+        beforehand; its time, the index build, the tests the queries
+        need (k1.needed_tests) and those its counting build made, and
+        three bounds: the queries' need (``bound_ms``), the work it did
+        and the brute force's. Returns (its output, its row)."""
+        index = k1.tile_index(ps)
+        if tr is None:
+            def fn():
+                return k1.min_sq_dists(qs, ps, index)
+        else:
+            def fn():
+                return k1.lcp_min_d2(tr, qs, ps, index)
+        got = fn()
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        c = 1 if tr is None else tr.shape[0]
+        nq, np_ = qs.shape[0], ps.shape[0]
+        m = c * nq
+        _, pairs, boxes, parts = k1.lcp_min_d2_counts(tr, qs, ps, index)
+        ms = _kernel_ms(fn, (K1B_NAME, K1B_FILL) if parts > 1 else K1B_NAME,
+                        reps=10)
+        build_ms = _device_ms(lambda: k1.tile_index(ps), reps=10)
+        need = k1.needed_tests(tr, qs, index, ref)
+        n_tiles, n_groups = (index.tile_box.shape[0],
+                             index.group_box.shape[0])
+        # each input read once (the index as float4 points and two float4
+        # a box), the output written once
+        nbytes = (4 * (16 * c + 3 * nq + m) + 16 * k1.TILE * n_tiles
+                  + 32 * (n_tiles + n_groups))
+        bound_ms, bound_by = _bound(
+            K1_OPS * need["pairs"] + K1_BOX_OPS * need["boxes"], nbytes)
+        work_ms, work_by = _bound(K1_OPS * pairs + K1_BOX_OPS * boxes,
+                                  nbytes)
+        brute_ms, brute_by = _bound(K1_OPS * m * np_,
+                                    4 * (16 * c + 3 * nq + 3 * np_ + m))
+        _log(f"K1 brute force {label}: C={c} nq={nq} np={np_} equal to "
+             f"plain={same} max|dd2|={err:.3e}; {n_tiles} tiles, {n_groups} "
+             f"groups, {parts} part(s) over blockIdx.y; per query: pair "
+             f"tests {pairs / m:.1f} made, {need['pairs'] / m:.1f} needed "
+             f"alone, {need['warp_pairs'] / m:.1f} by its warps "
+             f"({need['other_order_pairs'] / m:.1f} in the other slot "
+             f"order); box tests {boxes / m:.1f} made, "
+             f"{need['boxes'] / m:.1f} needed (brute force {np_} pair "
+             f"tests); kernel {ms:.4f} ms index build {build_ms:.4f} ms "
+             f"plain {plain_ms:.3f} ms; bound of the need {bound_ms:.5f} ms "
+             f"({bound_by}), of the work done {work_ms:.5f} ms ({work_by}),"
+             f" of the brute force {brute_ms:.3f} ms ({brute_by})")
+        if not same:
+            raise SystemExit(f"K1 brute force {label} disagrees with its "
+                             f"plain version")
+        return got, dict(shape=f"C={c} nq={nq} np={np_}", ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None,
+                         index_build_ms=build_ms, parts=parts,
+                         pair_tests=pairs, box_tests=boxes,
+                         pair_tests_per_query=pairs / m,
+                         box_tests_per_query=boxes / m,
+                         needed_pair_tests_per_query=need["pairs"] / m,
+                         needed_box_tests_per_query=need["boxes"] / m,
+                         warp_union_pair_tests_per_query=(
+                             need["warp_pairs"] / m),
+                         other_order_pair_tests_per_query=(
+                             need["other_order_pairs"] / m),
+                         work_bound_ms=work_ms, work_bound_by=work_by,
+                         brute_force_bound_ms=brute_ms, max_abs_err=err)
+
     # 3. K1 at the verify's shapes: the pruned kernel against its
     # contract, the brute force against its plain version
-    k1_row = k1w_row = None
+    k1w_row = None
     k1w_err, k1w_bad = 0.0, 0
     for label, c, qs, ps in (
             ("exact", 64, q_pos, p_pos),
@@ -1333,34 +1441,17 @@ def main() -> int:
         qs = qs.contiguous()
         ps = ps.contiguous()
         tr = near_pose(c)
-        got = k1.lcp_min_d2(tr, qs, ps)
         ref = k1.lcp_min_d2_plain(tr, qs, ps)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        k1_err = max(k1_err, err)
-        hits_k = int((got <= eps2).sum())
-        hits_p = int((ref <= eps2).sum())
+        plain_ms = _cuda_ms(lambda: k1.lcp_min_d2_plain(tr, qs, ps),
+                            reps=2)
+        got, brute_rows[label] = check_tiles(label, tr, qs, ps, ref,
+                                             plain_ms)
+        k1_err = max(k1_err, brute_rows[label]["max_abs_err"])
         row, w_err, w_bad = check_within(label, tr, qs, ps, opts.delta,
                                          ref, got)
         k1w_err, k1w_bad = max(k1w_err, w_err), k1w_bad + w_bad
         if label == "exact":
             k1w_row = row
-        ms = _kernel_ms(lambda: k1.lcp_min_d2(tr, qs, ps), K1_NAME,
-                        reps=10)
-        plain_ms = _cuda_ms(lambda: k1.lcp_min_d2_plain(tr, qs, ps),
-                            reps=2)
-        bound_ms, bound_by = _bound(
-            K1_OPS * c * qs.shape[0] * ps.shape[0],
-            4 * (16 * c + 3 * qs.shape[0] + 3 * ps.shape[0]
-                 + c * qs.shape[0]))
-        _log(f"K1 {label}: C={c} nq={qs.shape[0]} np={ps.shape[0]} "
-             f"max|dd2|={err:.3e} hits kernel={hits_k} plain={hits_p} "
-             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-             f"bound {bound_ms:.3f} ms ({bound_by})")
-        # same operations in the same order: expected bit-identical;
-        # held to 1e-6 absolute (d2 of unit-scale clouds)
-        if not (err <= 1e-6 and hits_k == hits_p):
-            raise SystemExit(f"K1 {label} disagrees with its plain version")
         if label == "coarse-4096":
             # the library yardstick: one PyTorch call for the same
             # function on the transformed queries (its (C, nq, Np)
@@ -1374,9 +1465,7 @@ def main() -> int:
             _log(f"K1 library: torch.cdist(tq, p).amin(-1) at C={c} "
                  f"nq={qs.shape[0]} np={ps.shape[0]}: {library_ms:.3f} ms"
                  f" (max|cdist^2 - plain| {lib_err:.3e})")
-            k1_row = dict(shape=f"C={c} nq={qs.shape[0]} np={ps.shape[0]}",
-                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
+            brute_rows[label]["library_ms"] = library_ms
             del tq, pb, lib
         del got, ref
 
@@ -1384,64 +1473,26 @@ def main() -> int:
     # min_sq_dists (K4a/K4b) against its plain version
     t0 = time.perf_counter()
     upos, uq = _ultra_pair()
-    urng = np.random.default_rng(5)
-    usp = sampling.sample_for_matching(s4.PointCloud(upos), 0.005, 16384,
-                                       False, urng)
-    usq = sampling.sample_for_matching(s4.PointCloud(uq), 0.005, 16384,
-                                       True, urng)
-    usq = usq.take(sampling.kd_argsort(usq.pos))
-    up = torch.as_tensor(usp.pos - usp.pos.mean(0), device=dev)
-    uqp = torch.as_tensor(usq.pos - usq.pos.mean(0), device=dev)
+    up, uqp = _ultra_samples(s4, upos, uq, dev)
     _log(f"1M config samples: np={up.shape[0]} nq={uqp.shape[0]} "
          f"({time.perf_counter() - t0:.1f} s to build and sample)")
-    if up.shape[0] != 530_895 or uqp.shape[0] != 16384:
-        raise SystemExit("the 1M config's samples changed size")
     tr = near_pose(64)
-    got = k1.lcp_min_d2(tr[:4], uqp, up)
-    ref = k1.lcp_min_d2_plain(tr[:4], uqp, up)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    k1_err = max(k1_err, err)
-    ms4 = _kernel_ms(lambda: k1.lcp_min_d2(tr[:4], uqp, up), K1_NAME,
-                     reps=3)
-    plain4 = _cuda_ms(lambda: k1.lcp_min_d2_plain(tr[:4], uqp, up),
-                      reps=1, warmup=0)
-    ms = _kernel_ms(lambda: k1.lcp_min_d2(tr, uqp, up), K1_NAME, reps=3)
-    bound_ms, bound_by = _bound(K1_OPS * 64 * uqp.shape[0] * up.shape[0],
-                                4 * (16 * 64 + 3 * uqp.shape[0]
-                                     + 3 * up.shape[0] + 64 * uqp.shape[0]))
-    _log(f"K1 1M: C=4 max|dd2|={err:.3e} vs plain, kernel {ms4:.3f} ms "
-         f"plain {plain4:.3f} ms; exact stage C=64 nq={uqp.shape[0]} "
-         f"np={up.shape[0]} kernel {ms:.3f} ms bound {bound_ms:.3f} ms "
-         f"({bound_by})")
-    if not (err <= 1e-6 and torch.equal(got <= 0.005 ** 2,
-                                        ref <= 0.005 ** 2)):
-        raise SystemExit("K1 at the 1M config disagrees with its plain "
-                         "version")
-    ref = k1.lcp_min_d2_plain(tr, uqp, up)
-    got = k1.lcp_min_d2(tr, uqp, up)
-    if not torch.equal(got, ref):
-        raise SystemExit("K1 at the 1M config's exact stage disagrees "
-                         "with its plain version")
+    plain = {}
+    plain_ms = _cuda_ms(lambda: plain.update(
+        ref=k1.lcp_min_d2_plain(tr, uqp, up)), reps=1, warmup=0)
+    ref = plain.pop("ref")
+    got, brute_rows["1M exact"] = check_tiles("1M exact", tr, uqp, up, ref,
+                                              plain_ms)
+    k1_err = max(k1_err, brute_rows["1M exact"]["max_abs_err"])
     k1w_1m, w_err, w_bad = check_within("1M exact", tr, uqp, up, 0.005,
                                         ref, got)
     k1w_err, k1w_bad = max(k1w_err, w_err), k1w_bad + w_bad
     del ref, got
-    got = k1.min_sq_dists(uqp, up)
     ref = k1.min_sq_dists_plain(uqp, up)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    k1_err = max(k1_err, err)
-    ms = _kernel_ms(lambda: k1.min_sq_dists(uqp, up), K1_NAME, reps=5)
     plain_ms = _cuda_ms(lambda: k1.min_sq_dists_plain(uqp, up), reps=2)
-    bound_ms, bound_by = _bound(K1_OPS * uqp.shape[0] * up.shape[0],
-                                4 * (4 * uqp.shape[0] + 3 * up.shape[0]))
-    _log(f"K1 as min_sq_dists (K4a/K4b): M={uqp.shape[0]} "
-         f"np={up.shape[0]} max|dd2|={err:.3e} bit-identical="
-         f"{torch.equal(got, ref)} kernel {ms:.3f} ms plain "
-         f"{plain_ms:.3f} ms bound {bound_ms:.3f} ms ({bound_by})")
-    if not torch.equal(got, ref):
-        raise SystemExit("min_sq_dists disagrees with its plain version")
+    got, brute_rows["K4a"] = check_tiles("K4a (min_sq_dists)", None, uqp,
+                                         up, ref, plain_ms)
+    k1_err = max(k1_err, brute_rows["K4a"]["max_abs_err"])
     # the library yardstick at the 1M shapes: one torch.cdist + amin
     # over the whole (M, Np) matrix (34.8 GB), for K4a (the queries as
     # they are) and for K3 at C = 1 (the queries moved by one candidate)
@@ -1457,6 +1508,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         library_1m[name] = dict(shape=f"M={qs.shape[0]} np={up.shape[0]}",
                                 ms=lib_ms, max_abs_err=lib_err)
+        if name == "K4a":
+            brute_rows["K4a"]["library_ms"] = lib_ms
         gb = 4 * qs.shape[0] * up.shape[0] / 1e9
         _log(f"library {name}: torch.cdist(q, p).amin(-1) at M="
              f"{qs.shape[0]} np={up.shape[0]} ({gb:.1f} GB matrix): "
@@ -1524,11 +1577,11 @@ def main() -> int:
     fP, fQ = _filtered_clouds(P, Q, s4)
     filters = dict(max_normal_difference=20.0, max_color_distance=60.0,
                    max_translation_distance=1.3, max_angle=80.0)
-    # P's voxel sample keeps the order of the headline's (sp), so the
+    # P's voxel sample keeps the order of the headline's (p_pos), so the
     # base ids index its normals and colors
     fsp = sampling.sample_for_matching(fP, opts.delta, 8192, False,
                                        np.random.default_rng(0))
-    if not np.array_equal(fsp.pos, sp.pos):
+    if not np.array_equal(fsp.pos - fsp.pos.mean(0), p_pos.cpu().numpy()):
         raise SystemExit("the filtered P sample differs from the headline's")
     for n_q, target in ((8192, 160), (32768, 160)):
         fsq = sampling.sample_for_matching(fQ, opts.delta, n_q, True,
@@ -1824,7 +1877,7 @@ def main() -> int:
     parts = {}
     for name, t, in_index in evs:
         key = ("K1 grid_index" if in_index else
-               next((k for k in (K1W_NAME, K1_NAME) + K2_NAMES
+               next((k for k in (K1W_NAME, K1B_NAME) + K2_NAMES
                      if k in name),
                     "sort" if "sort" in name.lower() else "other"))
         ms_, n_ = parts.get(key, (0.0, 0))
@@ -1876,7 +1929,8 @@ def main() -> int:
                        f"_min_dist_stream_kernel)"),
              launches=sum(launches("lcp_min_d2").values()),
              launches_by_path=launches("lcp_min_d2"),
-             max_abs_err=k1_err, library_1m=library_1m, **k1_row),
+             library_1m=library_1m, shapes=brute_rows,
+             **dict(brute_rows["coarse-4096"], max_abs_err=k1_err)),
         dict(name="rowcap_capture", route="cuda",
              source="super4pcs_tpu_torch/csrc/rowcap.cu",
              replaces=(f"{rk}:115 (K2 _kernel + _kernel_body :202); "

@@ -1,34 +1,8 @@
 // K1: LCP min squared distance, out[c, q] = min_p |R_c q + t_c - p|^2,
-// in two kernels: the grid-pruned lcp_min_d2_within_kernel of the main
-// path's verify (its note is below the brute force's) and the brute-force
-// lcp_min_d2_kernel.
-//
-// lcp_min_d2_kernel replaces the TPU kernel super4pcs_tpu/kernels/lcp_pallas.py::
-// _lcp_min_kernel (K1, launched by candidate_min_sq_dists), and with it
-// the streamed-P _lcp_min_stream_kernel (K3) and, through one identity
-// transform (kernels/lcp.py::min_sq_dists), the untransformed
-// _min_dist_kernel and _min_dist_stream_kernel (K4a, K4b): it serves
-// min_sq_dists and any caller that needs the min beyond eps.
-//
-// Design. One thread owns one (candidate, query) pair of the flattened
-// C * nq space, so a block spans several candidates when nq is small
-// (the coarse stage has nq = 64) and no thread idles. The thread applies
-// its transform in registers, then streams P through shared memory in
-// tiles of P_TILE points; every thread of the block reads the same
-// float4 per step (a broadcast, no bank conflicts), so any Np works:
-// the TPU's split between a VMEM-resident P (up to 300k points) and a
-// streamed one has no counterpart here.
-//
-// Bound. C * nq * Np pair tests of 8 flops each (3 sub, 3 mul, 2 add)
-// plus a min, on the CUDA cores, fp32, no tensor cores: compute-bound.
-// P is reread once per block from L2 (blocks * Np * 16 bytes), the
-// output is C * nq * 4 bytes.
-//
-// Numerics. d^2 is the sum of squared coordinate differences, never the
-// |a|^2 + |b|^2 - 2ab expansion. Every product and sum uses __fmul_rn /
-// __fadd_rn in a fixed order, so nothing is contracted into an FMA and
-// the result is bit-identical to the plain PyTorch version
-// (kernels/lcp.py::lcp_min_d2_plain).
+// in two kernels: lcp_min_d2_tiles_kernel, the brute force's min by an
+// exact branch-and-bound over a tiled index of P, and the grid-pruned
+// lcp_min_d2_within_kernel of the main path's verify (its note is below
+// the first's).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,7 +10,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int P_TILE = 1024;
 
 __device__ __forceinline__ float row_apply(const float* m, float x,
                                            float y, float z) {
@@ -47,49 +20,432 @@ __device__ __forceinline__ float row_apply(const float* m, float x,
                    m[3]);
 }
 
-__global__ void __launch_bounds__(THREADS)
-lcp_min_d2_kernel(const float* __restrict__ transforms,
-                  const float* __restrict__ q,
-                  const float* __restrict__ p,
-                  float* __restrict__ out,
-                  long long total, int nq, int np) {
-  __shared__ float4 tile[P_TILE];
-  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const bool live = g < total;
-  float tx = 0.f, ty = 0.f, tz = 0.f;
-  if (live) {
-    const long long c = g / nq;
-    const long long qi = g - c * nq;
-    const float* m = transforms + 16 * c;  // row-major 4x4
-    const float x = q[3 * qi], y = q[3 * qi + 1], z = q[3 * qi + 2];
-    tx = row_apply(m, x, y, z);
-    ty = row_apply(m + 4, x, y, z);
-    tz = row_apply(m + 8, x, y, z);
-  }
-  float best = INFINITY;
-  for (int base = 0; base < np; base += P_TILE) {
-    const int cnt = min(P_TILE, np - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += THREADS) {
-      const float* pp = p + 3LL * (base + i);
-      tile[i] = make_float4(pp[0], pp[1], pp[2], 0.f);
+// lcp_min_d2_tiles_kernel: the brute force's min, by an exact
+// branch-and-bound over a tiled index of P.
+//
+// Replaces three TPU kernels of super4pcs_tpu/kernels/lcp_pallas.py:
+// _lcp_min_kernel (K1, through candidate_min_sq_dists), and through one
+// null transform (kernels/lcp.py::min_sq_dists) the untransformed
+// _min_dist_kernel (K4a, min_sq_dists) and _min_dist_stream_kernel (K4b,
+// min_sq_dists_streamed); the streamed-P _lcp_min_stream_kernel (K3) is
+// the same function. It serves any caller that needs the min beyond eps.
+// No path of the matcher launches it (its verify is the kernel below).
+//
+// Index (kernels/lcp.py::tile_index, torch ops on P's device). P sorted
+// by a 63-bit Morton code over its bounding box, as float4 (x, y, z, 0),
+// its tail padded to a multiple of 32 by repeating the last point (a
+// duplicate never changes a min and keeps every box tight). Tile k is
+// points [32k, 32k + 32), one a lane; group g is tiles [32g, 32g + 32)
+// (the last may hold fewer). tbox and gbox hold each tile's and group's
+// axis-aligned box as two float4, lo then hi.
+//
+// Walk. A warp owns 32 consecutive slots of the C * nq (candidate,
+// query) pairs, and the slots run over the queries: the matcher's Q is
+// kd-ordered, so its lanes are neighbours. Below 1024 queries
+// (kernels/lcp.py::CAND_INNER_NQ, which sets cand_inner) 32
+// consecutive queries span at least 1/32 of Q, so there the slots run
+// over the candidates (a warp holds one query under 32 candidates,
+// which lie close together when the candidates agree, as a verify's
+// best ones do near a good pose) and the output is written strided.
+// The block stages its groups' boxes in shared memory.
+// Seeds first, so that every lane holds a real min before any pruning:
+// among the groups whose box overlaps the box [a, b] of the warp's
+// transformed queries (else the one nearest the centre of [a, b]), each
+// lane takes the group whose middle is nearest its query, and within it
+// the tile whose middle is nearest; the warp visits the distinct seed
+// tiles. Then it walks every group in index order, and each group's
+// tiles in order, the seed tiles left out. Lane l tests box l of a run
+// of 32 against [a, b] with the warp's largest running min (one coarse
+// test a lane, a ballot of candidates); each candidate is tested by
+// every lane against its own query and its own running min, and the
+// warp descends into a group, or loads a tile, when any lane's test
+// passes (__any_sync: the warp stays uniform). A visited tile's 32
+// points are loaded once, one coalesced float4 a lane, into the warp's
+// slot of shared memory, and every lane tests all 32 with the brute
+// force's arithmetic.
+//
+// Exactness. Per axis the gap of a query t to a box [lo, hi] is
+// max(rn(lo - t), rn(t - hi), 0): rn(lo - t) when t < lo, rn(t - hi)
+// when t > hi, 0 otherwise. The bound is ((gx gx + gy gy) + gz gz) with
+// the same __f*_rn operations as d2. For p in the box, |t - p| >= the
+// exact gap; round-to-nearest is monotone and odd, so |rn(t - p)| >= the
+// computed gap, and squares and sums of non-negative floats are monotone
+// too: every point of the box has a computed d2 >= the bound. For the
+// coarse test, rn(lo - b) <= rn(lo - t) and rn(a - hi) <= rn(t - hi) for
+// every t in [a, b], so its bound is <= each lane's. A box is skipped
+// only when its bound is >= the running min (a skipped point can only
+// tie), so the min is the brute force's bit for bit, with no margin.
+// A query with a NaN transformed coordinate writes NaN and one with an
+// infinite one +inf, as lcp_min_d2_plain does; far finite queries (the
+// Q_PAD rows at 1e17, d2 ~1e34) walk as any other, and a d2 that
+// overflows gives +inf. P is finite.
+//
+// Filling the card. One warp per 32 slots, 4 warps a block. When C * nq
+// gives fewer than two blocks per SM (K4a: 16384 slots are 128 blocks on
+// 132 SMs), the group list is split over blockIdx.y into parts, enough
+// for two blocks per SM (K4a: 3 parts, 384 blocks); the wrapper picks
+// the number (kernels/lcp.py::tile_parts). Part p takes groups
+// p, p + parts, ...: every part then holds groups near every query, so
+// its seeds and its running mins are nearly the whole walk's, and the
+// parts together do little more work than one walk (a part of
+// consecutive groups, far from a query, would search its own region in
+// full). Each part folds its min into the output with atomicMin on the
+// float's bits (non-negative floats order as int32; a min is
+// order-free, so the result is still exact), after the output is filled
+// with +inf bits on the stream (cudaMemset cannot write that pattern).
+// A part also reads the output before each run of groups and prunes
+// against it: a value there is some part's real min. At C * nq =
+// 524,288 (the exact stage) the grid is 4096 x 1 blocks, 31 per SM. A
+// part stages at most 1024 group boxes (32 KB), so a cloud of more than
+// 1024 groups (~1M points) is split at any C * nq.
+//
+// Bound. Its work depends on the data. chip_smoke.py bounds it by what
+// the queries need on the index, whatever walks it
+// (kernels/lcp.py::needed_tests): a query cannot rule out a tile whose
+// bound is below its min, so it makes 32 pair tests (9 operations each,
+// as the brute force's) for each such tile, and one box test (18
+// operations) for each other group or tile it rules out. Beside that it
+// bounds the work this walk did, the pair and box tests of the counting
+// build of this kernel (counts != null). P is read once per visited tile
+// from L2 (8.5 MB at Np = 530,895 fits the 50 MB L2), so the bytes do
+// not bound it: the pair-test loop does, 9 fp32 operations and one
+// shared-memory load a point on every lane. What holds it above the
+// queries' need is the warp union: a warp visits a tile when any of its
+// 32 queries needs it, so it makes several times the pair tests that its
+// queries need alone (needed_tests counts both).
+//
+// Numerics. Transform and d2 as the within kernel below (__f*_rn, no
+// FMA; row_apply), so the min is bit-identical to lcp_min_d2_plain and
+// to the plain walk of the same index (kernels/lcp.py::
+// lcp_min_d2_tiled_plain).
+
+constexpr int TILE = 32;              // points a tile: one a lane
+constexpr int GROUP = 32;             // tiles a group
+constexpr int B_THREADS = 128;        // 4 warps a block
+constexpr int B_WARPS = B_THREADS / 32;
+constexpr int MAX_PART_GROUPS = 1024; // group boxes a block stages: 32 KB
+constexpr unsigned FULL = 0xffffffffu;
+
+// max(rn(lo - t), rn(t - hi), 0): the axis gap of t to [lo, hi]
+__device__ __forceinline__ float axis_gap(float lo, float hi, float t) {
+  return fmaxf(fmaxf(__fsub_rn(lo, t), __fsub_rn(t, hi)), 0.f);
+}
+
+__device__ __forceinline__ float sum_sq(float gx, float gy, float gz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
+}
+
+// lower bound of the computed d2 of the point t to any point of [lo, hi]
+__device__ __forceinline__ float box_bound(float4 lo, float4 hi, float tx,
+                                           float ty, float tz) {
+  return sum_sq(axis_gap(lo.x, hi.x, tx), axis_gap(lo.y, hi.y, ty),
+                axis_gap(lo.z, hi.z, tz));
+}
+
+// lower bound of box_bound over every t of the query box [a, b]
+__device__ __forceinline__ float box_box_bound(float4 lo, float4 hi,
+                                               float3 a, float3 b) {
+  return sum_sq(
+      fmaxf(fmaxf(__fsub_rn(lo.x, b.x), __fsub_rn(a.x, hi.x)), 0.f),
+      fmaxf(fmaxf(__fsub_rn(lo.y, b.y), __fsub_rn(a.y, hi.y)), 0.f),
+      fmaxf(fmaxf(__fsub_rn(lo.z, b.z), __fsub_rn(a.z, hi.z)), 0.f));
+}
+
+// the seed key: d2 of the point t to the middle of the box [lo, hi]
+__device__ __forceinline__ float mid_d2(float4 lo, float4 hi, float tx,
+                                        float ty, float tz) {
+  return sum_sq(__fsub_rn(tx, __fadd_rn(__fmul_rn(0.5f, lo.x),
+                                        __fmul_rn(0.5f, hi.x))),
+                __fsub_rn(ty, __fadd_rn(__fmul_rn(0.5f, lo.y),
+                                        __fmul_rn(0.5f, hi.y))),
+                __fsub_rn(tz, __fadd_rn(__fmul_rn(0.5f, lo.z),
+                                        __fmul_rn(0.5f, hi.z))));
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// the (value, index) of the warp's least value, the lower index on ties
+__device__ __forceinline__ int warp_argmin(float v, int i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(FULL, v, o);
+    const int oi = __shfl_xor_sync(FULL, i, o);
+    if (ov < v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
     }
-    __syncthreads();
-    if (live) {
+  }
+  return i;
+}
+
+__global__ void lcp_min_d2_tiles_fill_kernel(float* __restrict__ out,
+                                             long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < total) out[i] = INFINITY;
+}
+
+// One lane's walk state, shared by the visit of a tile.
+struct Walk {
+  float tx, ty, tz;  // the transformed query
+  float best;        // this part's running min
+  float ext;         // the output's value (other parts' min), or +inf
+  bool live;         // a finite query of this launch
+  unsigned long long pairs, boxes;  // the counting build's tallies
+  __device__ __forceinline__ float limit() const { return fminf(best, ext); }
+};
+
+// Visit tile `tile` (box lo, hi) if any lane's bound is below its limit:
+// load its 32 points once and test them all on every lane.
+template <bool COUNT>
+__device__ __forceinline__ void visit_tile(Walk& w, float4* slot,
+                                           const float4* __restrict__ pts,
+                                           int tile, float4 lo, float4 hi,
+                                           int lane) {
+  const bool want =
+      w.live && box_bound(lo, hi, w.tx, w.ty, w.tz) < w.limit();
+  if (COUNT && w.live) ++w.boxes;
+  if (!__any_sync(FULL, want)) return;
+  slot[lane] = __ldg(pts + (long long)tile * TILE + lane);
+  __syncwarp();
+  float best = w.best;
 #pragma unroll 8
-      for (int j = 0; j < cnt; ++j) {
-        const float4 v = tile[j];
-        const float dx = __fsub_rn(tx, v.x);
-        const float dy = __fsub_rn(ty, v.y);
-        const float dz = __fsub_rn(tz, v.z);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                             __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        best = fminf(best, d2);
+  for (int j = 0; j < TILE; ++j) {
+    const float4 v = slot[j];
+    const float dx = __fsub_rn(w.tx, v.x);
+    const float dy = __fsub_rn(w.ty, v.y);
+    const float dz = __fsub_rn(w.tz, v.z);
+    best = fminf(best, sum_sq(dx, dy, dz));
+  }
+  __syncwarp();
+  if (w.live) {
+    w.best = best;
+    if (COUNT) w.pairs += TILE;
+  }
+}
+
+template <bool COUNT>
+__global__ void __launch_bounds__(B_THREADS)
+lcp_min_d2_tiles_kernel(const float* __restrict__ transforms,
+                        const float* __restrict__ q,
+                        const float4* __restrict__ pts,
+                        const float4* __restrict__ tbox,
+                        const float4* __restrict__ gbox, float* out,
+                        unsigned long long* __restrict__ counts,
+                        long long total, int nq, int nc, bool cand_inner,
+                        int n_tiles, int n_groups) {
+  extern __shared__ float4 sgbox[];  // 2 * ng: lo, hi
+  __shared__ float4 stile[B_WARPS][2 * TILE];  // a tile, or 32 boxes
+  // this part's groups: part, part + parts, ... (local k is group
+  // part + k * parts)
+  const int part = blockIdx.y, parts = gridDim.y;
+  const int ng = (n_groups - part + parts - 1) / parts;
+  for (int i = threadIdx.x; i < 2 * ng; i += B_THREADS)
+    sgbox[i] = __ldg(gbox + 2LL * (part + (long long)(i >> 1) * parts) +
+                     (i & 1));
+  __syncthreads();
+
+  const bool split = parts > 1;
+  const int lane = threadIdx.x & 31;
+  const long long s = (long long)blockIdx.x * B_THREADS + threadIdx.x;
+  const bool in_range = s < total;
+  long long o = 0;  // the slot's output index c * nq + qi
+  Walk w;
+  w.tx = w.ty = w.tz = 0.f;
+  if (in_range) {
+    const long long c = cand_inner ? s % nc : s / nq;
+    const long long qi = cand_inner ? s / nc : s % nq;
+    o = c * nq + qi;
+    const float x = q[3 * qi], y = q[3 * qi + 1], z = q[3 * qi + 2];
+    if (transforms != nullptr) {
+      const float* m = transforms + 16 * c;
+      w.tx = row_apply(m, x, y, z);
+      w.ty = row_apply(m + 4, x, y, z);
+      w.tz = row_apply(m + 8, x, y, z);
+    } else {
+      w.tx = x;
+      w.ty = y;
+      w.tz = z;
+    }
+  }
+  w.live = in_range && isfinite(w.tx) && isfinite(w.ty) && isfinite(w.tz);
+  w.best = INFINITY;
+  w.ext = INFINITY;
+  w.pairs = w.boxes = 0;
+  if (in_range && !w.live && blockIdx.y == 0) {
+    // the plain version's value: NaN - p is NaN, +-inf - p squares to inf
+    out[o] = (isnan(w.tx) || isnan(w.ty) || isnan(w.tz)) ? NAN : INFINITY;
+  }
+  if (__ballot_sync(FULL, w.live) == 0) return;  // warp-uniform
+
+  // the warp's query box [a, b] and its centre
+  float3 a, b;
+  a.x = warp_min(w.live ? w.tx : INFINITY);
+  a.y = warp_min(w.live ? w.ty : INFINITY);
+  a.z = warp_min(w.live ? w.tz : INFINITY);
+  b.x = warp_max(w.live ? w.tx : -INFINITY);
+  b.y = warp_max(w.live ? w.ty : -INFINITY);
+  b.z = warp_max(w.live ? w.tz : -INFINITY);
+  const float cx = 0.5f * a.x + 0.5f * b.x, cy = 0.5f * a.y + 0.5f * b.y,
+              cz = 0.5f * a.z + 0.5f * b.z;
+  if (split && w.live) w.ext = __ldcg(out + o);
+
+  // seed groups: among the part's groups that overlap the warp's box,
+  // the one whose middle is nearest each lane's query, else the group
+  // nearest the box's centre
+  float4* slot = stile[threadIdx.x >> 5];
+  float sv = INFINITY, cv = INFINITY;
+  int sg = -1, cg = 0x7fffffff;
+  for (int base = 0; base < ng; base += 32) {
+    const int gi = base + lane;
+    bool ov = false;
+    if (gi < ng) {
+      const float4 lo = sgbox[2 * gi], hi = sgbox[2 * gi + 1];
+      ov = box_box_bound(lo, hi, a, b) == 0.f;
+      const float v = box_bound(lo, hi, cx, cy, cz);
+      if (v < cv || cg == 0x7fffffff) {
+        cv = v;
+        cg = gi;
+      }
+      if (COUNT) w.boxes += 2;
+    }
+    unsigned om = __ballot_sync(FULL, ov);
+    while (om) {
+      const int g = base + __ffs(om) - 1;
+      om &= om - 1;
+      if (w.live) {
+        const float v = mid_d2(sgbox[2 * g], sgbox[2 * g + 1], w.tx, w.ty,
+                               w.tz);
+        if (COUNT) ++w.boxes;
+        if (v < sv || sg < 0) {
+          sv = v;
+          sg = g;
+        }
       }
     }
   }
-  if (live) out[g] = best;
+  cg = warp_argmin(cv, cg);
+  if (__ballot_sync(FULL, sg >= 0) == 0) sg = cg;
+
+  // the tile of its seed group whose middle is nearest each lane's query,
+  // one seed group at a time
+  int st = -1;
+  float tv = INFINITY;
+  bool todo = w.live;
+  for (unsigned pm; (pm = __ballot_sync(FULL, todo)) != 0;) {
+    const int g = __shfl_sync(FULL, sg, __ffs(pm) - 1);
+    const int first = (part + g * parts) * GROUP;
+    const int nt = min(GROUP, n_tiles - first);
+    if (lane < nt) {
+      slot[2 * lane] = __ldg(tbox + 2LL * (first + lane));
+      slot[2 * lane + 1] = __ldg(tbox + 2LL * (first + lane) + 1);
+    }
+    __syncwarp();
+    if (todo && sg == g) {
+      for (int k = 0; k < nt; ++k) {
+        const float v = mid_d2(slot[2 * k], slot[2 * k + 1], w.tx, w.ty,
+                               w.tz);
+        if (v < tv || st < 0) {
+          tv = v;
+          st = first + k;
+        }
+      }
+      if (COUNT) w.boxes += nt;
+      todo = false;
+    }
+    __syncwarp();
+  }
+
+  // visit the distinct seed tiles, in the order of their first lane; lane
+  // k keeps the k-th in seed_slot
+  int n_seed = 0, seed_slot = -1;
+  bool done = !w.live;
+  for (unsigned pm; (pm = __ballot_sync(FULL, !done)) != 0;) {
+    const int tile = __shfl_sync(FULL, st, __ffs(pm) - 1);
+    if (lane == n_seed) seed_slot = tile;
+    ++n_seed;
+    visit_tile<COUNT>(w, slot, pts, tile, __ldg(tbox + 2LL * tile),
+                      __ldg(tbox + 2LL * tile + 1), lane);
+    done |= st == tile;
+  }
+
+  // every group, and every tile, whose bound is below some lane's limit
+  for (int base = 0; base < ng; base += 32) {
+    if (split && w.live) w.ext = fminf(w.ext, __ldcg(out + o));
+    const float wl = warp_max(w.live ? w.limit() : -INFINITY);
+    const int gi = base + lane;
+    bool cand = false;
+    if (gi < ng) {
+      cand = box_box_bound(sgbox[2 * gi], sgbox[2 * gi + 1], a, b) < wl;
+      if (COUNT) ++w.boxes;
+    }
+    unsigned gm = __ballot_sync(FULL, cand);
+    while (gm) {
+      const int g = base + __ffs(gm) - 1;
+      gm &= gm - 1;
+      const bool want =
+          w.live && box_bound(sgbox[2 * g], sgbox[2 * g + 1], w.tx, w.ty,
+                              w.tz) < w.limit();
+      if (COUNT && w.live) ++w.boxes;
+      if (!__any_sync(FULL, want)) continue;
+      const int first = (part + g * parts) * GROUP;
+      const int tile = first + lane;
+      bool seeded = false;
+      for (int k = 0; k < n_seed; ++k)
+        seeded |= __shfl_sync(FULL, seed_slot, k) == tile;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      bool tc = false;
+      const float tl = warp_max(w.live ? w.limit() : -INFINITY);
+      if (tile < n_tiles && !seeded) {
+        lo = __ldg(tbox + 2LL * tile);
+        hi = __ldg(tbox + 2LL * tile + 1);
+        tc = box_box_bound(lo, hi, a, b) < tl;
+        if (COUNT) ++w.boxes;
+      }
+      unsigned tm = __ballot_sync(FULL, tc);
+      while (tm) {
+        const int j = __ffs(tm) - 1;
+        tm &= tm - 1;
+        float4 jlo, jhi;
+        jlo.x = __shfl_sync(FULL, lo.x, j);
+        jlo.y = __shfl_sync(FULL, lo.y, j);
+        jlo.z = __shfl_sync(FULL, lo.z, j);
+        jhi.x = __shfl_sync(FULL, hi.x, j);
+        jhi.y = __shfl_sync(FULL, hi.y, j);
+        jhi.z = __shfl_sync(FULL, hi.z, j);
+        visit_tile<COUNT>(w, slot, pts, first + j, jlo, jhi, lane);
+      }
+    }
+  }
+
+  if (w.live) {
+    if (split)
+      atomicMin(reinterpret_cast<int*>(out) + o, __float_as_int(w.best));
+    else
+      out[o] = w.best;
+  }
+  if (COUNT) {
+    unsigned long long p = w.pairs, x = w.boxes;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      p += __shfl_xor_sync(FULL, p, off);
+      x += __shfl_xor_sync(FULL, x, off);
+    }
+    if (lane == 0) {
+      atomicAdd(counts, p);
+      atomicAdd(counts + 1, x);
+    }
+  }
 }
 
 // lcp_min_d2_within_kernel: the verify of the main path.
@@ -133,8 +489,8 @@ lcp_min_d2_kernel(const float* __restrict__ transforms,
 // hundred bytes a query from L2) and latency of the dependent searches
 // bound it, not the fp32 rate.
 //
-// Numerics. Transform and d2 exactly as lcp_min_d2_kernel (__f*_rn, no
-// FMA), so the result is bit-identical to
+// Numerics. Transform and d2 exactly as lcp_min_d2_tiles_kernel (__f*_rn,
+// no FMA), so the result is bit-identical to
 // where(lcp_min_d2_plain <= eps2, lcp_min_d2_plain, inf) and to the
 // plain walk of the same index (kernels/lcp.py::lcp_min_d2_within_plain).
 
@@ -219,18 +575,51 @@ lcp_min_d2_within_kernel(const float* __restrict__ transforms,
 
 }  // namespace
 
-// transforms: (c, 4, 4) f32, q: (nq, 3) f32, p: (np, 3) f32, out: (c, nq)
-// f32; all contiguous on the device of `stream`. Returns cudaGetLastError.
-extern "C" int lcp_min_d2(const void* transforms, const void* q,
-                          const void* p, void* out, int c, int nq, int np,
-                          void* stream) {
+// transforms: (c, 4, 4) f32, or null for the rows of q as they are (c =
+// 1); q: (nq, 3) f32; and P's tile index
+// (kernels/lcp.py::tile_index): pts (32 n_tiles, 4) f32, tbox (n_tiles,
+// 2, 4) f32, gbox (n_groups, 2, 4) f32; out: (c, nq) f32; counts: null,
+// or two zeroed uint64 that the counting build adds its pair tests and
+// box tests to. All contiguous on the device of `stream`; n_groups >= 1.
+// The caller picks the launch (kernels/lcp.py::_launch_tiles): `parts`
+// of the group list over blockIdx.y (1 <= parts <= n_groups, at most
+// MAX_PART_GROUPS groups a part), and `cand_inner` != 0 for slots over
+// the candidates. One launch, after a fill of out when parts > 1.
+// Returns cudaGetLastError, or cudaErrorInvalidValue for a launch
+// outside those limits.
+extern "C" int lcp_min_d2_tiles(const void* transforms, const void* q,
+                                const void* pts, const void* tbox,
+                                const void* gbox, void* out, void* counts,
+                                int c, int nq, int n_tiles, int n_groups,
+                                int parts, int cand_inner, void* stream) {
   const long long total = (long long)c * nq;
   if (total == 0) return 0;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  lcp_min_d2_kernel<<<(unsigned)blocks, THREADS, 0,
-                      (cudaStream_t)stream>>>(
-      (const float*)transforms, (const float*)q, (const float*)p,
-      (float*)out, total, nq, np);
+  if (n_groups < 1 || n_tiles < 1 || parts < 1 || parts > n_groups ||
+      parts > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (total + B_THREADS - 1) / B_THREADS;
+  const int per = (n_groups + parts - 1) / parts;
+  if (per > MAX_PART_GROUPS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (parts > 1) {
+    lcp_min_d2_tiles_fill_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                                   st>>>((float*)out, total);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)blocks, (unsigned)parts);
+  const size_t smem = 2 * (size_t)per * sizeof(float4);
+  if (counts != nullptr)
+    lcp_min_d2_tiles_kernel<true><<<grid, B_THREADS, smem, st>>>(
+        (const float*)transforms, (const float*)q, (const float4*)pts,
+        (const float4*)tbox, (const float4*)gbox, (float*)out,
+        (unsigned long long*)counts, total, nq, c, cand_inner != 0,
+        n_tiles, n_groups);
+  else
+    lcp_min_d2_tiles_kernel<false><<<grid, B_THREADS, smem, st>>>(
+        (const float*)transforms, (const float*)q, (const float4*)pts,
+        (const float4*)tbox, (const float4*)gbox, (float*)out, nullptr,
+        total, nq, c, cand_inner != 0, n_tiles, n_groups);
   return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,14 @@ say what bounds them and how they are laid out.
   walking a cell index of P (:func:`grid_index`, :func:`build_index`)
   instead of all of P. One launch verifies the candidates of one cloud
   pair or of G pairs; the caller builds the index once per run.
-- :func:`lcp_min_d2` is the brute force over all of P. It covers the
-  TPU's streamed-P variant ``_lcp_min_stream_kernel`` (K3) and the
+- :func:`lcp_min_d2` is the min over all of P, found by an exact
+  branch-and-bound over a tiled index of P (:func:`tile_index`): a box
+  whose bound is at least a query's running min is skipped, so the
+  result is the brute force's bit for bit. It covers the TPU's
+  streamed-P variant ``_lcp_min_stream_kernel`` (K3) and the
   untransformed ``_min_dist_kernel`` / ``_min_dist_stream_kernel`` (K4a
-  / K4b) through :func:`min_sq_dists`.
+  / K4b) through :func:`min_sq_dists`. :func:`tiled_walk` is the
+  kernel's walk in torch, for the CPU tests.
 
 The wrappers send a CPU tensor to the plain version and launch the
 kernel for a CUDA tensor (or raise): there is no fallback between the
@@ -91,11 +95,13 @@ def lcp_min_d2_plain(transforms: torch.Tensor, q: torch.Tensor,
 
 
 def _check(what: str, transforms, q, p) -> torch.device:
-    """The inputs' common device; raises on a wrong type, shape or a
-    device that is neither the CPU nor CUDA."""
+    """The inputs' common device (``transforms`` may be None); raises on a
+    wrong type, shape or a device that is neither the CPU nor CUDA."""
     dev = q.device
     for name, t, shape in (("transforms", transforms, (4, 4)),
                            ("q", q, (3,)), ("p", p, (3,))):
+        if t is None:
+            continue
         if t.dtype != torch.float32 or tuple(t.shape[1:]) != shape:
             raise ValueError(f"{what}: {name} must be float32 "
                              f"(N, {', '.join(map(str, shape))}), got "
@@ -107,29 +113,368 @@ def _check(what: str, transforms, q, p) -> torch.device:
     return dev
 
 
+#: points a tile of the brute force's index (one a lane), tiles a group
+TILE = 32
+GROUP = 32
+#: Morton code bits per axis (3 x 21 = 63 bits in an int64)
+_MORTON_BITS = 21
+#: below this many queries the kernel's slots run over the candidates
+CAND_INNER_NQ = 1024
+#: group boxes a part stages in shared memory (32 KB; csrc/lcp.cu
+#: refuses more)
+MAX_PART_GROUPS = 1024
+
+
+class TileIndex(NamedTuple):
+    """The tiled index of a cloud P that :func:`lcp_min_d2` walks
+    (:func:`tile_index`): P in Morton order, tiles of 32 consecutive
+    points and groups of 32 consecutive tiles, each with its box."""
+    pts: torch.Tensor        # (32 T, 4) f32: (x, y, z, 0), tail padded
+    tile_box: torch.Tensor   # (T, 2, 4) f32: lo, hi of each tile
+    group_box: torch.Tensor  # (G, 2, 4) f32: lo, hi of each group
+    perm: torch.Tensor       # (np,) int64: pts[i, :3] = p[perm[i]]
+    n_points: int            # np
+
+
+def _spread3(v: torch.Tensor) -> torch.Tensor:
+    """The low 21 bits of each int64 of ``v`` moved to every third bit."""
+    v = v & 0x1FFFFF
+    v = (v | (v << 32)) & 0x1F00000000FFFF
+    v = (v | (v << 16)) & 0x1F0000FF0000FF
+    v = (v | (v << 8)) & 0x100F00F00F00F00F
+    v = (v | (v << 4)) & 0x10C30C30C30C30C3
+    return (v | (v << 2)) & 0x1249249249249249
+
+
+def tile_index(p: torch.Tensor) -> TileIndex:
+    """The tiled index of the (np, 3) float32 cloud ``p``, built with
+    torch ops on its device (no host sync).
+
+    Each point is quantised to 21 bits per axis over P's bounding box
+    (cubic cells), its 63-bit Morton code sorted once (stable). The
+    sorted points are stored as float4 ``(x, y, z, 0)`` and the tail is
+    padded to a multiple of :data:`TILE` by repeating the last point (a
+    duplicate never changes a min, and every box stays tight). Tile k is
+    points ``[32 k, 32 k + 32)``, group g tiles ``[32 g, 32 g + 32)``
+    (the last group may hold fewer); each has its axis-aligned box.
+    ``p`` is finite."""
+    n, dev = p.shape[0], p.device
+    if n == 0:
+        box = torch.zeros((0, 2, 4), dtype=torch.float32, device=dev)
+        return TileIndex(torch.zeros((0, 4), dtype=torch.float32,
+                                     device=dev), box, box,
+                         torch.zeros(0, dtype=torch.int64, device=dev), 0)
+    lo, hi = torch.aminmax(p, dim=0)
+    span = (hi - lo).amax().clamp(min=float(np.finfo(np.float32).tiny))
+    top = (1 << _MORTON_BITS) - 1
+    cell = ((p - lo) * (top / span)).long().clamp_(0, top)
+    code = (_spread3(cell[:, 0]) | (_spread3(cell[:, 1]) << 1)
+            | (_spread3(cell[:, 2]) << 2))
+    perm = torch.sort(code, stable=True).indices
+    n_tiles = -(-n // TILE)
+    n_groups = -(-n_tiles // GROUP)
+    idx = torch.cat([perm, perm[-1:].expand(n_tiles * TILE - n)])
+    pts = torch.nn.functional.pad(p[idx], (0, 1))
+    tlo, thi = torch.aminmax(pts.view(n_tiles, TILE, 4), dim=1)
+    pad = n_groups * GROUP - n_tiles
+    glo = torch.cat([tlo, tlo[-1:].expand(pad, 4)]).view(
+        n_groups, GROUP, 4).amin(1)
+    ghi = torch.cat([thi, thi[-1:].expand(pad, 4)]).view(
+        n_groups, GROUP, 4).amax(1)
+    return TileIndex(pts, torch.stack([tlo, thi], 1),
+                     torch.stack([glo, ghi], 1), perm, n)
+
+
+def _tiles_for(p: torch.Tensor, index: TileIndex | None) -> TileIndex:
+    """``index`` checked against ``p``, or built."""
+    if index is None:
+        return tile_index(p)
+    if index.n_points != p.shape[0] or index.pts.device != p.device:
+        raise ValueError(f"lcp_min_d2: the tile index was built for "
+                         f"{index.n_points} points on {index.pts.device}, "
+                         f"not {p.shape[0]} on {p.device}")
+    return index
+
+
+def _sum_sq(d):
+    """``(dx dx + dy dy) + dz dz`` over the last axis (the kernel's
+    order)."""
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    return (x * x + y * y) + z * z
+
+
+def _box_bound(t, lo, hi):
+    """The kernel's lower bound of the d^2 of ``t`` (..., 3) to any point
+    of the boxes ``[lo, hi]`` (..., 3): per axis the gap ``max(lo - t,
+    t - hi, 0)``, then ``(gx gx + gy gy) + gz gz``, in float32."""
+    return _sum_sq(torch.maximum(lo - t, t - hi).clamp_min(0.0))
+
+
+def _box_box_bound(lo, hi, a, b):
+    """The kernel's coarse bound of the boxes ``[lo, hi]`` against a warp's
+    query box ``[a, b]``: per axis ``max(lo - b, a - hi, 0)``, which is at
+    most :func:`_box_bound` of every query in ``[a, b]``."""
+    return _sum_sq(torch.maximum(lo - b, a - hi).clamp_min(0.0))
+
+
+def _mid_d2(t, lo, hi):
+    """The kernel's seed key: the d^2 of ``t`` to the middle
+    ``0.5 lo + 0.5 hi`` of each box."""
+    return _sum_sq(t - (0.5 * lo + 0.5 * hi))
+
+
+def tiled_walk(transforms: torch.Tensor, q: torch.Tensor,
+               index: TileIndex, parts: int = 1):
+    """The kernel's walk in torch: ``(out (C * nq,), pair tests, box
+    tests)``, with the kernel's warps, order, skip rules and counts
+    (``transforms`` None: the rows of ``q`` as they are, C = 1).
+
+    Slots run over the queries (over the candidates below
+    :data:`CAND_INNER_NQ` queries) and are cut into warps of 32, each
+    with the box ``[a, b]`` of its finite transformed queries. The
+    group list is cut into ``parts`` interleaved lists (part p: groups
+    p, p + parts, ...; at most one part a group, as the launcher cuts
+    them), walked one after another (one schedule of the kernel's
+    parts), each pruning against the output the earlier ones left.
+    Per part and warp: the seeds (among the groups overlapping ``[a,
+    b]``, else the one nearest its centre, each query's nearest group
+    middle, then that group's nearest tile middle), the distinct seed
+    tiles visited in the order of their first query; then per run of 32
+    groups the coarse tests against ``[a, b]`` and the warp's largest
+    limit, each candidate's fine test per query, and in a group the same
+    for its tiles (the seed tiles left out). A tile is visited when any
+    query's fine test passes; all the warp's finite queries then test
+    its 32 points. With ``parts`` 1 the kernel makes the same decisions,
+    so the counts are its counting build's."""
+    c = 1 if transforms is None else transforms.shape[0]
+    nq = q.shape[0]
+    m, dev = c * nq, q.device
+    t = q if transforms is None else torch.stack(
+        [x.reshape(-1) for x in _transformed(transforms, q)], 1)
+    inner = nq < CAND_INNER_NQ
+    if inner:
+        t = t.view(c, nq, 3).transpose(0, 1).reshape(-1, 3)
+    n_tiles, n_groups = index.tile_box.shape[0], index.group_box.shape[0]
+    if n_groups == 0:
+        return torch.full((m,), float("inf"), device=dev), 0, 0
+    out = torch.where(torch.isnan(t).any(1), float("nan"), float("inf"))
+    if m == 0:
+        return out, 0, 0
+    pairs = boxes = 0
+    n_warps = -(-m // 32)
+    live = torch.zeros(n_warps * 32, dtype=torch.bool, device=dev)
+    live[:m] = torch.isfinite(t).all(1)
+    live = live.view(n_warps, 32)
+    tw = torch.zeros((n_warps * 32, 3), dtype=torch.float32, device=dev)
+    tw[:m] = t
+    tw = torch.where(live.view(-1, 1), tw, 0.0).view(n_warps, 32, 3)
+    inf = torch.tensor(float("inf"), device=dev)
+    a = torch.where(live[..., None], tw, inf).amin(1)
+    b = torch.where(live[..., None], tw, -inf).amax(1)
+    centre = 0.5 * a + 0.5 * b
+    active = live.any(1)
+    n_active = int(active.sum())
+    pts = index.pts[:, :3].reshape(n_tiles, TILE, 3)
+    tlo, thi = index.tile_box[:, 0, :3], index.tile_box[:, 1, :3]
+    glo, ghi = index.group_box[:, 0, :3], index.group_box[:, 1, :3]
+    lanes = torch.arange(32, device=dev)
+    res = torch.full((n_warps, 32), float("inf"), device=dev)
+
+    def limit(best, ext, w):
+        return torch.minimum(best[w], ext[w])
+
+    def warp_limit(best, ext, w):
+        return torch.where(live[w], limit(best, ext, w), -inf).amax(1)
+
+    def visit(best, ext, w, tile):
+        # the fine test of each warp w against its tile, then the visit
+        nonlocal pairs, boxes
+        fb = _box_bound(tw[w], tlo[tile][:, None], thi[tile][:, None])
+        boxes += int(live[w].sum())
+        go = (live[w] & (fb < limit(best, ext, w))).any(1)
+        w, tile = w[go], tile[go]
+        if w.numel() == 0:
+            return
+        d2 = _sum_sq(tw[w][:, :, None, :] - pts[tile][:, None, :, :])
+        best[w] = torch.where(live[w], torch.minimum(best[w], d2.amin(2)),
+                              best[w])
+        pairs += TILE * int(live[w].sum())
+
+    parts = min(parts, n_groups)
+    for part in range(parts):
+        gl = torch.arange(part, n_groups, parts, device=dev)
+        ng = gl.shape[0]
+        best = torch.full((n_warps, 32), float("inf"), device=dev)
+        ext = res.clone()
+        warps = active.nonzero().squeeze(1)
+        # seed groups: among the part's groups that overlap the warp's box,
+        # the one whose middle is nearest each query, else the group
+        # nearest the box's centre
+        ov = _box_box_bound(glo[gl], ghi[gl], a[warps][:, None],
+                            b[warps][:, None]) == 0
+        boxes += 2 * ng * n_active
+        lw = live[warps]
+        boxes += int((lw.sum(1) * ov.sum(1)).sum())
+        gb = torch.where(ov[:, None], _mid_d2(tw[warps][:, :, None],
+                                              glo[gl], ghi[gl]), inf)
+        sg = torch.where(gb.amin(2) < inf, gb.argmin(2),
+                         ov.int().argmax(1)[:, None])
+        centre_g = _box_bound(centre[warps][:, None], glo[gl],
+                              ghi[gl]).argmin(1)
+        sg = torch.where(ov.any(1)[:, None], sg, centre_g[:, None])
+        # the tile of its seed group whose middle is nearest each query
+        tids = gl[sg][..., None] * GROUP + lanes
+        valid = tids < n_tiles
+        tids = tids.clamp(max=n_tiles - 1)
+        boxes += int((valid & lw[..., None]).sum())
+        tb = torch.where(valid, _mid_d2(tw[warps][:, :, None], tlo[tids],
+                                        thi[tids]), inf)
+        st = torch.where(lw, tids.gather(2, tb.argmin(2, keepdim=True))[
+            ..., 0], -1)
+        seed = torch.full((n_warps, 32), -1, dtype=torch.int64, device=dev)
+        seed[warps] = st
+        # visit the distinct seed tiles, in the order of their first query
+        first = lw.clone()
+        for r in range(1, 32):
+            first[:, r] &= (st[:, :r] != st[:, r:r + 1]).all(1)
+        for r in range(32):
+            sel = first[:, r]
+            visit(best, ext, warps[sel], st[sel, r])
+        for base in range(0, ng, 32):
+            gis = gl[base:base + 32]
+            wl = warp_limit(best, ext, warps)
+            cand = _box_box_bound(glo[gis], ghi[gis], a[warps][:, None],
+                                  b[warps][:, None]) < wl[:, None]
+            boxes += len(gis) * n_active
+            for k in range(len(gis)):
+                g = int(gis[k])
+                w = warps[cand[:, k]]
+                if w.numel() == 0:
+                    continue
+                fb = _box_bound(tw[w], glo[g], ghi[g])
+                boxes += int(live[w].sum())
+                w = w[(live[w] & (fb < limit(best, ext, w))).any(1)]
+                if w.numel() == 0:
+                    continue
+                tl = warp_limit(best, ext, w)
+                tiles = torch.arange(g * GROUP, min(g * GROUP + GROUP,
+                                                    n_tiles), device=dev)
+                other = (tiles[None, :, None] != seed[w][:, None]).all(2)
+                boxes += int(other.sum())
+                tcand = other & (_box_box_bound(
+                    tlo[tiles], thi[tiles], a[w][:, None],
+                    b[w][:, None]) < tl[:, None])
+                for j in range(len(tiles)):
+                    wj = w[tcand[:, j]]
+                    if wj.numel():
+                        visit(best, ext, wj, tiles[j].expand(wj.numel()))
+        res = torch.where(live, torch.minimum(res, best), res)
+    flat_live = live.view(-1)[:m]
+    out[flat_live] = res.view(-1)[:m][flat_live]
+    if inner:
+        out = out.view(nq, c).t().reshape(-1)
+    return out, pairs, boxes
+
+
+def lcp_min_d2_tiled_plain(transforms: torch.Tensor, q: torch.Tensor,
+                           p: torch.Tensor, index: TileIndex | None = None,
+                           parts: int = 1) -> torch.Tensor:
+    """The kernel's branch-and-bound over P's tiled index, in torch
+    (:func:`tiled_walk`), for the CPU tests: (C, nq), bit for bit
+    :func:`lcp_min_d2_plain`. No path calls it."""
+    c, nq = transforms.shape[0], q.shape[0]
+    out, _, _ = tiled_walk(transforms, q, _tiles_for(p, index), parts)
+    return out.view(c, nq)
+
+
+def needed_tests(transforms: torch.Tensor | None, q: torch.Tensor,
+                 index: TileIndex, ref: torch.Tensor, chunk: int = 4096):
+    """The tests the finite queries need on ``index``, whatever walks it,
+    for a measurement (``transforms`` None: the rows of ``q``, C = 1;
+    ``ref`` the brute force's min, C * nq values; ``chunk`` rows at a
+    time, a multiple of 32). A dict of totals:
+
+    - ``pairs``: a query cannot rule out a tile whose bound is below its
+      min, and a finite min is held by one tile at least: 32 pair tests
+      for each such tile, and for one tile when there is none;
+    - ``boxes``: the box tests that rule out every other tile, one for
+      each group whose bound is at least the query's min and, in the
+      other groups, one for each tile whose bound is (one less when no
+      tile's bound is below the min: the tile that holds it may be one);
+    - ``warp_pairs``: the pair tests of warps of 32 slots in the
+      kernel's order (:func:`tiled_walk`) that test each tile one of
+      their queries needs (one at least, where a min is finite) with all
+      their finite queries; ``other_order_pairs`` the same with the
+      slots in the other order.
+    """
+    c = 1 if transforms is None else transforms.shape[0]
+    nq = q.shape[0]
+    t = q if transforms is None else torch.stack(
+        [x.reshape(-1) for x in _transformed(transforms, q)], 1)
+    ref = ref.reshape(-1)
+    tlo, thi = index.tile_box[:, 0, :3], index.tile_box[:, 1, :3]
+    glo, ghi = index.group_box[:, 0, :3], index.group_box[:, 1, :3]
+    n_tiles, n_groups = tlo.shape[0], glo.shape[0]
+    per_group = torch.bincount(
+        torch.arange(n_tiles, device=t.device) // GROUP,
+        minlength=n_groups)
+
+    def count(t, ref):
+        m = t.shape[0]
+        pad = -m % 32
+        t = torch.cat([t, t.new_full((pad, 3), float("nan"))])
+        ref = torch.cat([ref, ref.new_full((pad,), float("inf"))])
+        pairs = boxes = warps = 0
+        for r0 in range(0, m + pad, chunk):
+            tc, rc = t[r0:r0 + chunk], ref[r0:r0 + chunk, None]
+            live = torch.isfinite(tc).all(1)
+            below = (_box_bound(tc[:, None], tlo, thi) < rc) & live[:, None]
+            n_below = below.sum(1)
+            open_ = (_box_bound(tc[:, None], glo, ghi) < rc) & live[:, None]
+            n_open = open_.sum(1)
+            # a finite min is held by one tile at least
+            held = live & torch.isfinite(rc[:, 0])
+            pairs += int(torch.where(held, n_below.clamp(min=1),
+                                     n_below).sum())
+            rule_out = (n_groups - n_open
+                        + torch.where(open_, per_group, 0).sum(1) - n_below
+                        - ((n_below == 0) & (n_open > 0)).long())
+            boxes += int(torch.where(live, rule_out, 0).sum())
+            lanes = live.view(-1, 32).sum(1)
+            union = torch.maximum(below.view(-1, 32, n_tiles).any(1).sum(1),
+                                  held.view(-1, 32).any(1).long())
+            warps += int((lanes * union).sum())
+        return TILE * pairs, boxes, TILE * warps
+
+    if n_tiles == 0:
+        return dict(pairs=0, boxes=0, warp_pairs=0, other_order_pairs=0)
+    pairs, boxes, warps_q = count(t, ref)
+    warps_c = warps_q if c == 1 or nq == 1 else count(
+        t.view(c, nq, 3).transpose(0, 1).reshape(-1, 3),
+        ref.view(c, nq).t().reshape(-1))[2]
+    inner = nq < CAND_INNER_NQ
+    return dict(pairs=pairs, boxes=boxes,
+                warp_pairs=warps_c if inner else warps_q,
+                other_order_pairs=warps_q if inner else warps_c)
+
+
 def lcp_min_d2(transforms: torch.Tensor, q: torch.Tensor,
-               p: torch.Tensor) -> torch.Tensor:
+               p: torch.Tensor, index: TileIndex | None = None
+               ) -> torch.Tensor:
     """(C, nq) f32 min squared distances of every transformed query to
     P. ``transforms`` (C, 4, 4), ``q`` (nq, 3), ``p`` (np, 3), all
-    float32 on one device. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    float32 on one device; ``index`` is P's :func:`tile_index` (built on
+    this call when not given). A query with a NaN transformed coordinate
+    gives NaN, one with an infinite one +inf (as the plain version).
+    CPU tensors take the plain version; CUDA tensors launch the
+    branch-and-bound kernel, bit for bit the plain version's min."""
     dev = _check("lcp_min_d2", transforms, q, p)
     if dev.type == "cpu":
+        if index is not None:
+            _tiles_for(p, index)
         return lcp_min_d2_plain(transforms, q, p)
-    transforms, q, p = (t.contiguous() for t in (transforms, q, p))
-    c, nq, np_ = transforms.shape[0], q.shape[0], p.shape[0]
-    out = torch.empty((c, nq), dtype=torch.float32, device=dev)
-    if c * nq == 0:
-        return out
-    if np_ == 0:
-        return out.fill_(float("inf"))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(lib.lcp_min_d2(
-            transforms.data_ptr(), q.data_ptr(), p.data_ptr(),
-            out.data_ptr(), c, nq, np_, stream), "lcp_min_d2")
-    lcp_min_d2.launches += 1
+    out, parts = _launch_tiles(transforms, q, p, index, None)
+    lcp_min_d2.launches += parts > 0
     return out
 
 
@@ -137,11 +482,73 @@ def lcp_min_d2(transforms: torch.Tensor, q: torch.Tensor,
 lcp_min_d2.launches = 0
 
 
+def tile_parts(total: int, n_groups: int, sms: int) -> int:
+    """The number of parts the launcher splits the group list into for
+    ``total`` = C * nq slots on a card of ``sms`` SMs: at most
+    :data:`MAX_PART_GROUPS` groups a part, and enough parts for two
+    blocks of 128 slots per SM, at most one a group."""
+    blocks = -(-total // 128)
+    parts = max(-(-n_groups // MAX_PART_GROUPS), -(-2 * sms // blocks))
+    return min(parts, n_groups, 65535)
+
+
+def _launch_tiles(transforms, q, p, index, counts):
+    """(out, the number of parts of the group list the kernel was
+    launched with, 0 if it was not) on the card; ``transforms`` None
+    takes the rows of ``q`` as they are (C = 1). The launch's shape is
+    decided here: the parts (:func:`tile_parts`) and the slot order
+    (over the candidates below :data:`CAND_INNER_NQ` queries)."""
+    q, p = q.contiguous(), p.contiguous()
+    if transforms is not None:
+        transforms = transforms.contiguous()
+    c = 1 if transforms is None else transforms.shape[0]
+    nq, np_ = q.shape[0], p.shape[0]
+    out = torch.empty((c, nq), dtype=torch.float32, device=q.device)
+    if c * nq == 0:
+        return out, 0
+    if np_ == 0:
+        return out.fill_(float("inf")), 0
+    index = _tiles_for(p, index)
+    n_tiles, n_groups = index.tile_box.shape[0], index.group_box.shape[0]
+    parts = tile_parts(c * nq, n_groups, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _build.check(lib.lcp_min_d2_tiles(
+            0 if transforms is None else transforms.data_ptr(),
+            q.data_ptr(), index.pts.data_ptr(),
+            index.tile_box.data_ptr(), index.group_box.data_ptr(),
+            out.data_ptr(), 0 if counts is None else counts.data_ptr(), c,
+            nq, n_tiles, n_groups, parts, int(nq < CAND_INNER_NQ), stream),
+            "lcp_min_d2")
+    return out, parts
+
+
+def lcp_min_d2_counts(transforms: torch.Tensor, q: torch.Tensor,
+                      p: torch.Tensor, index: TileIndex | None = None):
+    """``(out, pair tests, box tests, parts)`` of one launch of the
+    kernel's counting build (CUDA tensors only): the work its walk did
+    on these inputs, and the parts of the group list it was launched
+    with (0: not launched), for a measurement. ``out`` is
+    :func:`lcp_min_d2`'s (``transforms`` None: :func:`min_sq_dists`'
+    rows, C = 1); the launch counts in ``lcp_min_d2.launches``."""
+    dev = _check("lcp_min_d2_counts", transforms, q, p)
+    if dev.type != "cuda":
+        raise ValueError("lcp_min_d2_counts: the counting build runs on "
+                         "the card; tiled_walk counts on the CPU")
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    out, parts = _launch_tiles(transforms, q, p, index, counts)
+    lcp_min_d2.launches += parts > 0
+    pairs, boxes = counts.tolist()
+    return out, pairs, boxes, parts
+
+
 def _lib():
     lib = _build.load("lcp")
-    fn = lib.lcp_min_d2
+    fn = lib.lcp_min_d2_tiles
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     fn = lib.lcp_min_d2_within
@@ -438,27 +845,29 @@ def min_sq_dists_plain(tq: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return _min_d2_rows(tq[:, 0:1], tq[:, 1:2], tq[:, 2:3], p)
 
 
-def min_sq_dists(tq: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def min_sq_dists(tq: torch.Tensor, p: torch.Tensor,
+                 index: TileIndex | None = None) -> torch.Tensor:
     """(M,) f32 ``min_j |tq_m - p_j|^2`` of the (M, 3) rows ``tq`` to the
-    (Np, 3) cloud ``p``, with no transform.
+    (Np, 3) cloud ``p``, with no transform; ``index`` as for
+    :func:`lcp_min_d2`.
 
-    It launches K1 with one identity transform, which reproduces ``tq``
-    exactly (``((1 x + 0 y) + 0 z) + 0 = x`` in IEEE arithmetic), so it
-    is bit-identical to :func:`min_sq_dists_plain`. This covers three
-    TPU kernels of ``super4pcs_tpu/kernels/lcp_pallas.py``:
+    It launches the kernel of :func:`lcp_min_d2` on the rows as they are
+    (no transform), so it is bit-identical to :func:`min_sq_dists_plain`,
+    NaN rows giving NaN and infinite ones +inf. This covers three TPU
+    kernels of ``super4pcs_tpu/kernels/lcp_pallas.py``:
     ``_min_dist_kernel`` (K4a, via ``min_sq_dists``),
     ``_min_dist_stream_kernel`` (K4b, via ``min_sq_dists_streamed``) and,
     for transformed queries, ``_lcp_min_stream_kernel`` (K3, via
     ``candidate_min_sq_dists_streamed``, which is :func:`lcp_min_d2`).
     The TPU split each into a VMEM-resident P (up to 300k points) and a
-    P streamed through the Pallas pipeline; on the card K1 always
-    streams P through shared memory in 1024-point tiles, so one kernel
-    serves every Np. CPU tensors take the plain version.
+    P streamed through the Pallas pipeline; on the card the tiled index
+    serves every Np. CPU tensors take the plain version; the launch
+    counts in ``lcp_min_d2.launches``.
     """
-    if tq.dtype != torch.float32 or tq.ndim != 2 or tq.shape[1] != 3:
-        raise ValueError(f"min_sq_dists: tq must be float32 (M, 3), got "
-                         f"{tq.dtype} {tuple(tq.shape)}")
-    if tq.device.type == "cpu":
+    if _check("min_sq_dists", None, tq, p).type == "cpu":
+        if index is not None:
+            _tiles_for(p, index)
         return min_sq_dists_plain(tq, p)
-    eye = torch.eye(4, dtype=torch.float32, device=tq.device)[None]
-    return lcp_min_d2(eye, tq, p)[0]
+    out, parts = _launch_tiles(None, tq, p, index, None)
+    lcp_min_d2.launches += parts > 0
+    return out[0]

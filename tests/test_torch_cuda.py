@@ -14,6 +14,9 @@ from super4pcs_tpu_torch.kernels import lcp as k1
 from super4pcs_tpu_torch.kernels import rowcap as k2
 from super4pcs_tpu_torch.ops import masking, sampling
 
+from _tile_cases import NAMES as TILE_CASES
+from _tile_cases import case as tile_case
+from _tile_cases import kd_sphere, near_identity, same_bits
 from _within_cases import case as within_case
 
 pytestmark = pytest.mark.cuda
@@ -51,6 +54,71 @@ def test_lcp_kernel_bit_identical_to_plain(dev, c, nq, np_):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert k1.lcp_min_d2.launches == before + (np_ > 0)
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+def test_lcp_tiles_kernel_boundary_cases(dev, name):
+    """The CPU tests' boundary cases of the tiled brute force on the card
+    (tests/_tile_cases.py): a kd-ordered sphere under near-true poses,
+    random transforms, points on box faces and duplicated, queries
+    equidistant from two tiles, Np = 1, 31, 32, 33, 1025, Q_PAD rows,
+    NaN and +-inf transforms, no candidates, no queries, empty P. Then
+    min_sq_dists on the same rows with NaN and +-inf rows among them."""
+    tr, q, p = (torch.as_tensor(a, device=dev) for a in tile_case(name))
+    before = k1.lcp_min_d2.launches
+    got = k1.lcp_min_d2(tr, q, p)
+    ref = k1.lcp_min_d2_plain(tr, q, p)
+    torch.cuda.synchronize()
+    assert same_bits(got, ref)
+    launched = tr.shape[0] * q.shape[0] > 0 and p.shape[0] > 0
+    assert k1.lcp_min_d2.launches == before + launched
+    rows = q.clone()
+    if rows.shape[0] > 3:
+        rows[0, 1], rows[2, 2] = float("inf"), float("-inf")
+        rows[1] = float("nan")
+    got = k1.min_sq_dists(rows, p)
+    torch.cuda.synchronize()
+    assert same_bits(got, k1.min_sq_dists_plain(rows, p))
+
+
+def test_lcp_tiles_kernel_splits_the_groups_of_a_small_batch(dev):
+    """C * nq <= 64 against Np = 200,000: the launcher splits the group
+    list over blockIdx.y, one part a group, and folds the parts' mins
+    with atomicMin; the result is the plain version's bit for bit."""
+    rng = np.random.default_rng(12)
+    p = torch.as_tensor(kd_sphere(rng, 200_000), device=dev)
+    q = torch.as_tensor(kd_sphere(rng, 32), device=dev)
+    tr = torch.as_tensor(near_identity(rng, 2), device=dev)
+    idx = k1.tile_index(p)
+    assert k1.lcp_min_d2_counts(tr, q, p, idx)[3] > 1
+    got = k1.lcp_min_d2(tr, q, p, idx)
+    got_m = k1.min_sq_dists(q, p, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1.lcp_min_d2_plain(tr, q, p))
+    assert torch.equal(got_m, k1.min_sq_dists_plain(q, p))
+
+
+@pytest.mark.parametrize("c,nq", [(16, 4096), (256, 256)])
+def test_lcp_tiles_kernel_counts_equal_the_walk(dev, c, nq):
+    """With one part (C * nq fills the card) the kernel makes the plain
+    walk's decisions, its slots over the queries (nq = 4096) or over the
+    candidates (nq = 256): its counting build returns the same min and
+    the same pair tests and box tests as kernels/lcp.py::tiled_walk, and
+    its launch counts."""
+    rng = np.random.default_rng(13)
+    p = torch.as_tensor(kd_sphere(rng, 20000), device=dev)
+    q = torch.as_tensor(kd_sphere(rng, nq), device=dev)
+    tr = torch.as_tensor(near_identity(rng, c), device=dev)
+    idx = k1.tile_index(p)
+    before = k1.lcp_min_d2.launches
+    out, pairs, boxes, parts = k1.lcp_min_d2_counts(tr, q, p, idx)
+    walk, w_pairs, w_boxes = k1.tiled_walk(tr, q, idx)
+    assert parts == 1
+    assert k1.lcp_min_d2.launches == before + 1
+    assert same_bits(out.view(-1), walk)
+    assert same_bits(out, k1.lcp_min_d2_plain(tr, q, p))
+    assert (pairs, boxes) == (w_pairs, w_boxes)
+    assert pairs < 0.2 * c * nq * 20000
 
 
 def _within_contract(tr, q, p, eps):
