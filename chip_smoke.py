@@ -113,13 +113,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    then, measured and not gated, the rowcap engine on the same samples
    (K2 capturing at n = 131,072): two steps' profile and peak memory
    beside 5l's banded step;
+5m. the headline through ``MatchSuper4PCS(opts, mesh=make_mesh())``
+   over every visible card (a one-card mesh must equal phase 5 bit for
+   bit), then over ``make_mesh(["cuda:0"] * 2)`` (two shards of 8
+   bases on one card; its trials and LCP printed beside phase 5's):
+   the headline's gates, K1 and K2 launched, one step's launches (2
+   captures and 3 verifies on every shard) and the step's wall, device
+   time and idle share per card;
+5n. ``register_batch`` on 5j's four pairs with 5j's options over two
+   processes of ``distributed.initialize`` (gloo), which the script
+   spawns (``chip_smoke.py --batch-worker ADDR 2 PID``; both on cuda:0
+   with one card, cuda:rank with more): each exits 0 within 300 s (else
+   every child is killed and the script fails), both hold bit-identical
+   results, every pair meets 5j's gates, each process launched K1 and
+   K2; the step time of each;
+5o. the headline with ``phase_timing=True``: ``stats["phase_seconds"]``
+   and the roofline table against the H100's peaks; the phases' sum
+   within 10% of step_total, and the search phase 5's;
 6. the 500-point known-pose recipe on the GPU (dense engine,
    lcp_min_d2_within only);
 7. a headline step's launches (2 capture launches, 3 verify
    launches, no verify index built: it is built once per run) and a
    profile of headline steps: device busy and idle share per step,
    kernels per step, time by kernel;
-8. one line of the entry points' numbers (5c-5j), one JSON line of
+8. one line of the entry points' numbers (5c-5o), one JSON line of
    per-kernel results, then the last line {"ok": true, "device": {...}}.
 
 Kernel times are device times from torch.profiler (K2's includes its
@@ -131,9 +148,9 @@ filtered registration once per seed with tile-pair rejection on and
 once with it off (alternating which goes first), and prints each run's
 search seconds, trials and LCP and the medians.
 
-Each registration (5, 5b, 5c-5l, 6) is a path of its own: the launch
+Each registration (5, 5b, 5c-5o, 6) is a path of its own: the launch
 counts (K2's launches and the captures they covered) are set to 0 just
-before it and read just after.
+before it and read just after (5n's in each of its processes, summed).
 
 With ``--scale-only`` it runs phases 1-2 and 5h-5i alone, so that 5h is
 the first registration in its process.
@@ -944,19 +961,11 @@ def _scale_paths(s4, counters, by_path):
     return numbers
 
 
-def _batch_path(P, Q, s4, counters, by_path, engine="auto"):
-    """Phase 5j (``engine`` "auto": rowcap) and 5j-banded (``engine``
-    "banded"): ``register_batch`` on G = 4 pairs at the headline's width
-    (the headline pair and the three consecutive pairs of the
-    sequence-full views) with 5g sequence-full's options; each pair
-    gated on LCP >= 0.6 and its known relative pose; then, outside the
-    path, one step's launches and two steps' wall and device time of
-    the same batch. Returns the numbers it printed."""
+def _batch_pairs(P, Q, s4, engine="auto"):
+    """Phase 5j's four pairs (the headline pair and the three
+    consecutive pairs of the sequence-full views), their known relative
+    poses, and 5g sequence-full's options on ``engine``."""
     import numpy as np
-    import torch
-    from super4pcs_tpu_torch.parallel import batch
-    label = "batch" if engine == "auto" else f"batch-{engine}"
-    banded = engine == "banded"
     scans, gts = _sequence_views(P)
     pairs = [(s4.PointCloud(P), s4.PointCloud(Q))] + [
         (s4.PointCloud(scans[i]), s4.PointCloud(scans[i + 1]))
@@ -969,6 +978,21 @@ def _batch_path(P, Q, s4, counters, by_path, engine="auto"):
     opts = s4.Options(delta=0.01, sample_size=8192, max_time_seconds=30,
                       random_seed=5, pair_engine=engine
                       ).configure_overlap(0.5, 0.6)
+    return pairs, truth, opts
+
+
+def _batch_path(P, Q, s4, counters, by_path, engine="auto"):
+    """Phase 5j (``engine`` "auto": rowcap) and 5j-banded (``engine``
+    "banded"): ``register_batch`` on G = 4 pairs at the headline's width
+    (the headline pair and the three consecutive pairs of the
+    sequence-full views) with 5g sequence-full's options; each pair
+    gated on LCP >= 0.6 and its known relative pose; then, outside the
+    path, one step's launches and two steps' wall and device time of
+    the same batch. Returns the numbers it printed."""
+    from super4pcs_tpu_torch.parallel import batch
+    label = "batch" if engine == "auto" else f"batch-{engine}"
+    banded = engine == "banded"
+    pairs, truth, opts = _batch_pairs(P, Q, s4, engine)
     res, counts, wall, peak = _run_path(
         label, lambda: batch.register_batch(pairs, opts, device="cuda"),
         counters)
@@ -1014,24 +1038,263 @@ def _batch_path(P, Q, s4, counters, by_path, engine="auto"):
     run = batch.BatchRun(pairs, opts, device="cuda")
     for obj, attr in counters.values():
         setattr(obj, attr, 0)
-    builds = run.p_index.builds
+    builds = run.index_builds
     run.run_step(0)
     per_step = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     prof = _step_profile(run.run_step, 1)
     _log(f"{label} step (G=4, T={4 * b_eff}): launches per step "
          f"{per_step}; index builds during steps "
-         f"{run.p_index.builds - builds}; " + _profile_text(prof))
+         f"{run.index_builds - builds}; " + _profile_text(prof))
     want_k2 = 0 if banded else 2
     if (per_step["rowcap_capture"] != want_k2
             or per_step["rowcap_capture_captures"] != want_k2 * 4 * b_eff
             or per_step["lcp_min_d2_within"] != 3
-            or run.p_index.builds != builds):
+            or run.index_builds != builds):
         raise SystemExit(f"{label}: a step launched other than "
                          f"{want_k2} captures of every trial and 3 "
                          f"verifies, or built an index")
     numbers.update(step_launches=per_step, **prof)
     del run
     return numbers
+
+
+def _mesh_paths(P, Q, opts, ref, s4, counters, by_path, report):
+    """Phase 5m: the headline through ``MatchSuper4PCS(opts,
+    mesh=make_mesh())`` over every visible card, then over
+    ``make_mesh(["cuda:0"] * 2)`` (two shards of eight bases on one
+    card). Each run: the headline's gates, K1 and K2 launched, its
+    trials and LCP against phase 5's ``ref`` (a one-device mesh runs
+    phase 5's computation: it must equal it bit for bit; with more
+    shards each shard's verify keeps its own best candidates, so the
+    runs agree only where no shard drops one and the cuts pick alike);
+    then, outside the path, one step's launches (2 captures and 3
+    verifies on each shard) and the wall, device time and idle share of
+    a step. Returns the numbers it printed."""
+    import gc
+
+    import numpy as np
+    import torch
+    from super4pcs_tpu_torch.parallel import make_mesh
+    # the earlier phases' cached blocks (5l's 40 GB) and garbage out of
+    # the way of the step times
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers = {}
+    for label, devices in (("mesh", None), ("mesh-cuda0x2", ["cuda:0"] * 2)):
+        mesh = make_mesh(devices)
+        res, counts, wall, peak = _run_path(
+            label, lambda: s4.MatchSuper4PCS(
+                opts, mesh=mesh).compute_transformation(
+                    s4.PointCloud(P), s4.PointCloud(Q)), counters)
+        by_path[label] = counts
+        report(label, res, wall, peak)
+        same = (res.n_trials == ref.n_trials and res.score == ref.score
+                and np.array_equal(res.transform, ref.transform))
+        dropped = (int(res.stats["cands_overflow"]),
+                   int(ref.stats["cands_overflow"]))
+        _log(f"{label}: {mesh.size} shard(s) on "
+             f"{[str(d) for d in mesh.devices]}: trials {res.n_trials} LCP "
+             f"{res.score:.4f}, phase 5: {ref.n_trials} / {ref.score:.4f}; "
+             f"equal to phase 5 bit for bit={same}; candidates dropped "
+             f"{dropped[0]} (phase 5: {dropped[1]})")
+        if mesh.size == 1 and not same:
+            raise SystemExit(f"{label}: a one-device mesh differs from "
+                             f"phase 5")
+        if min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0:
+            raise SystemExit(f"{label}: a kernel of the path never "
+                             f"launched")
+        # one step's launches, then the wall and device time of steps
+        m = s4.MatchSuper4PCS(opts, mesh=mesh)
+        m._init(s4.PointCloud(P), s4.PointCloud(Q))
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        m._run_step(0)
+        per_step = {k: getattr(obj, attr)
+                    for k, (obj, attr) in counters.items()}
+        if (per_step["rowcap_capture"] != 2 * mesh.size
+                or per_step["rowcap_capture_captures"] != 2 * m._b_eff
+                or per_step["lcp_min_d2_within"] != 3 * mesh.size):
+            raise SystemExit(f"{label}: a step launched {per_step}, not 2 "
+                             f"captures and 3 verifies on each of "
+                             f"{mesh.size} shard(s)")
+        prof = _step_profile(m._run_step, 1, n=4)
+        cards = len(set(mesh.devices))
+        idle = 1.0 - prof["step_busy_ms"] / (prof["step_wall_ms"] * cards)
+        _log(f"{label} step (B={m._b_eff} over {mesh.size} shard(s), "
+             f"{cards} card(s)): launches per step {per_step}; "
+             + _profile_text(prof) + f"; idle share per card "
+             f"{100 * idle:.0f}%; {m._b_eff / prof['step_wall_ms'] * 1e3:.1f}"
+             f" trials/s")
+        numbers[label] = dict(
+            shards=mesh.size, cards=cards, trials=res.n_trials,
+            score=res.score, equal_to_phase5=same, cands_dropped=dropped[0],
+            search_s=res.stats["search_seconds"], wall_s=wall,
+            step_launches=per_step, card_idle_share=idle, **prof)
+        del m
+    return numbers
+
+
+def _batch_worker(argv) -> int:
+    """One process of phase 5n (``chip_smoke.py --batch-worker ADDR N
+    PID``): joins the job, runs ``register_batch`` on 5j's pairs over
+    ``distributed.global_mesh()`` with every launch count set to 0 just
+    before, then times 3 steps of the same batch, and prints one JSON
+    line: its results, counts and times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import bench
+    import super4pcs_tpu_torch as s4
+    from super4pcs_tpu_torch.kernels import lcp as k1
+    from super4pcs_tpu_torch.kernels import rowcap as k2
+    from super4pcs_tpu_torch.parallel import distributed, register_batch
+    from super4pcs_tpu_torch.parallel.batch import BatchRun
+    addr, n, pid = argv[0], int(argv[1]), int(argv[2])
+    dev = distributed.initialize(addr, n, pid)
+    mesh = distributed.global_mesh()
+    P, Q = bench.fine_delta_pair()
+    pairs, _, opts = _batch_pairs(P, Q, s4)
+    counters = {"lcp_min_d2_within": (k1.lcp_min_d2_within, "launches"),
+                "lcp_min_d2": (k1.lcp_min_d2, "launches"),
+                "rowcap_capture": (k2.rowcap_capture, "launches"),
+                "rowcap_capture_captures": (k2.rowcap_capture, "captures"),
+                "rowcap_capture_filtered": (k2.rowcap_capture,
+                                            "filtered_launches")}
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    t0 = time.perf_counter()
+    res = register_batch(pairs, opts, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    run = BatchRun(pairs, opts, mesh=mesh)
+    t0 = time.perf_counter()
+    for i in range(3):
+        run.run_step(1000 + i)
+    step_ms = 1e3 * (time.perf_counter() - t0) / 3
+    out = dict(pid=pid, device=str(dev), mesh=[str(d) for d in mesh.devices],
+               scores=[r.score for r in res],
+               trials=[r.n_trials for r in res],
+               transforms=[np.asarray(r.transform).tolist() for r in res],
+               batch_state=res[0].stats["batch_state"],
+               search_s=res[0].stats["search_seconds"],
+               compile_s=res[0].stats["compile_seconds"], wall_s=wall,
+               counts=counts, step_ms=step_ms)
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _dist_batch_path(P, Q, s4, by_path, timeout=300):
+    """Phase 5n: ``register_batch`` on 5j's four pairs with 5j's options
+    over two processes of ``distributed.initialize`` (gloo), spawned
+    here (:func:`_batch_worker`): both on ``cuda:0`` with one card,
+    ``cuda:rank`` with more. Both must exit 0 within ``timeout``
+    seconds (else every child is killed and the phase fails), hold
+    bit-identical results, and every pair must meet 5j's gates; each
+    process must have launched K1 and K2. Returns the numbers it
+    printed."""
+    import socket
+
+    import numpy as np
+    import torch
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--batch-worker", addr,
+         "2", str(pid)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"batch-2proc: a process ran past "
+                                 f"{timeout} s")
+            if p.returncode != 0:
+                raise SystemExit(f"batch-2proc: a process exited "
+                                 f"{p.returncode}:\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    a, b = outs
+    same = all(a[k] == b[k] for k in ("scores", "trials", "transforms",
+                                      "batch_state"))
+    _, truth, _ = _batch_pairs(P, Q, s4)
+    ok = True
+    for g, (score, mat, gt) in enumerate(zip(a["scores"], a["transforms"],
+                                             truth)):
+        rot_diff, tr_diff = s4.reference_pose_diff(np.asarray(mat), gt)
+        _log(f"batch-2proc pair {g}: score={score:.4f} trials="
+             f"{a['trials'][g]} rotDiff={rot_diff:.4f} trDiff={tr_diff:.4f}")
+        ok &= score >= 0.6 and rot_diff <= 0.2 and tr_diff <= 0.1
+    counts = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    by_path["batch-2proc"] = counts
+    _log(f"batch-2proc: processes on {a['mesh']}; results bit-identical in "
+         f"both={same}; launches per process {a['counts']} / "
+         f"{b['counts']}; search_s {a['search_s']:.3f} / "
+         f"{b['search_s']:.3f}, compile_s {a['compile_s']:.3f} / "
+         f"{b['compile_s']:.3f}; step {a['step_ms']:.1f} / "
+         f"{b['step_ms']:.1f} ms (G=4 over 2 processes); job wall "
+         f"{wall:.1f} s")
+    if not same:
+        raise SystemExit("batch-2proc: the processes' results differ")
+    if not ok:
+        raise SystemExit("batch-2proc: a pair missed its gates")
+    if any(min(o["counts"]["lcp_min_d2_within"],
+               o["counts"]["rowcap_capture"]) <= 0 for o in outs):
+        raise SystemExit("batch-2proc: a process launched no K1 or no K2")
+    return dict(devices=a["mesh"], scores=a["scores"], trials=a["trials"],
+                search_s=[a["search_s"], b["search_s"]],
+                step_ms=[a["step_ms"], b["step_ms"]], job_wall_s=wall,
+                launches=[a["counts"], b["counts"]])
+
+
+def _phase_timing_path(P, Q, opts, ref, s4, counters, by_path, report):
+    """Phase 5o: the headline with ``phase_timing=True``: its phases'
+    seconds and roofline table printed; the phases' sum within 10% of
+    the step's; the search itself phase 5's (same trials and LCP: the
+    measured steps draw off the search's stream). Returns them."""
+    import gc
+
+    import torch
+    from super4pcs_tpu_torch.utils import roofline
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, counts, wall, peak = _run_path(
+        "phase-timing", lambda: s4.MatchSuper4PCS(
+            opts.replace(phase_timing=True),
+            device="cuda").compute_transformation(
+                s4.PointCloud(P), s4.PointCloud(Q)), counters)
+    by_path["phase-timing"] = counts
+    report("phase-timing", res, wall, peak)
+    ph = res.stats["phase_seconds"]
+    roof = res.stats["phase_roofline"]
+    parts = sum(ph[k] for k in ("select_extract", "join", "fit", "verify"))
+    _log("phase-timing phase_seconds (ms): " + ", ".join(
+        f"{k} {1e3 * v:.3f}" for k, v in ph.items())
+        + f"; sum of the phases {1e3 * parts:.3f} ms"
+        + f" ({100 * parts / ph['step_total']:.1f}% of step_total)")
+    _log("phase-timing roofline against " + roofline.H100["name"]
+         + f", dispatch floor {1e3 * roofline.DISPATCH_FLOOR_S:.3f} ms:\n"
+         + roofline.table(roof))
+    if abs(parts - ph["step_total"]) > 0.1 * ph["step_total"]:
+        raise SystemExit("phase-timing: the phases do not add up to the "
+                         "step within 10%")
+    if (res.n_trials, res.score) != (ref.n_trials, ref.score):
+        raise SystemExit("phase-timing: the search differs from phase 5's")
+    if min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0:
+        raise SystemExit("phase-timing: a kernel never launched")
+    return dict(phase_seconds=ph, phase_roofline=roof, phases_sum_s=parts)
 
 
 @contextlib.contextmanager
@@ -1252,6 +1515,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--batch-worker"]:
+        return _batch_worker(sys.argv[2:])
     import numpy as np
 
     import bench
@@ -1329,10 +1594,7 @@ def main() -> int:
         build_ms = _device_ms(lambda: k1.grid_index(ps, eps), reps=10)
         plain_ms = _cuda_ms(
             lambda: k1.lcp_min_d2_within_plain(tr, qs, ps, eps), reps=1)
-        _, keys, grid = k1.grid_index(ps, eps)
-        tx, ty, tz = (t.reshape(-1) for t in k1._transformed(tr, qs))
-        _, counts = k1.walk_ranges(tx, ty, tz, keys, grid, eps)
-        tested = int(counts.sum())
+        tested = k1.pair_tests(tr, qs, ps, eps)
         c, nq, np_ = tr.shape[0], qs.shape[0], ps.shape[0]
         # the pruned work: its pair tests, each input read once (P as
         # float4 points and int32 keys), the output written once
@@ -1734,13 +1996,7 @@ def main() -> int:
         build_ms = _device_ms(lambda: k1.build_index(pp, opts.delta), reps=3)
         plain_ms = _cuda_ms(lambda: k1.lcp_min_d2_within_plain(
             trs, qq, pp, opts.delta, index), reps=1)
-        tested = 0
-        for g in range(n_sets):
-            _, keys, grid = index.part(g)
-            tx, ty, tz = (t.reshape(-1)
-                          for t in k1._transformed(trs[g], qq[g]))
-            tested += int(k1.walk_ranges(tx, ty, tz, keys, grid,
-                                         opts.delta)[1].sum())
+        tested = k1.pair_tests(trs, qq, pp, opts.delta, index)
         c, nq_, np_ = trs.shape[1], qq.shape[1], pp.shape[1]
         bound_ms, bound_by = _bound(
             K1_OPS * tested,
@@ -1791,6 +2047,7 @@ def main() -> int:
     if min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0:
         raise SystemExit("a kernel of the main path never launched")
     pairs_headline = report("headline", res, wall, peak)
+    headline_res = res
 
     # 5b. the filtered registration at the headline's width
     fopts = (s4.Options(delta=0.01, sample_size=8192,
@@ -1824,6 +2081,14 @@ def main() -> int:
     file_numbers.update(_banded_paths(P, Q, upos, uq, opts, s4, counters,
                                       by_path))
     del upos, uq
+    # 5m. the headline over a mesh of every card, then two shards on one
+    file_numbers.update(_mesh_paths(P, Q, opts, headline_res, s4, counters,
+                                    by_path, report))
+    # 5n. register_batch over two processes
+    file_numbers["batch-2proc"] = _dist_batch_path(P, Q, s4, by_path)
+    # 5o. the headline with phase timing
+    file_numbers["phase-timing"] = _phase_timing_path(
+        P, Q, opts, headline_res, s4, counters, by_path, report)
 
     # 6. the 500-point known-pose recipe (dense engine, K1 only: its
     # pruned verify)

@@ -33,6 +33,7 @@ def register(
     max_time_seconds: Optional[int] = None,
     algorithm: str = "super4pcs",
     visitor=None,
+    mesh=None,
     device="cuda",
     **option_overrides,
 ) -> RegistrationResult:
@@ -51,10 +52,14 @@ def register(
       sample_size: working sample count (reference ``-n``).
       max_time_seconds: anytime budget (reference ``-t``).
       algorithm: "super4pcs" (smart indexing) or "4pcs" (quadratic).
+      mesh: optional mesh (``parallel.make_mesh``) — shards each
+        device step's RANSAC trials across its devices
+        (parallel/sharded.py); its first device takes ``device``'s
+        place.
       device: where the registration runs ("cuda" by default; "cpu"
         runs the kernels' plain PyTorch versions).
       **option_overrides: any further Options field (e.g.
-        ``bases_per_step=32``); unknown names
+        ``phase_timing=True``, ``bases_per_step=32``); unknown names
         raise TypeError via dataclasses.replace.
     """
     opts = options or Options()
@@ -76,9 +81,9 @@ def register(
                         normal=source_normal, rgb=source_rgb)
 
     if algorithm == "super4pcs":
-        matcher = MatchSuper4PCS(opts, device=device)
+        matcher = MatchSuper4PCS(opts, device=device, mesh=mesh)
     elif algorithm == "4pcs":
-        matcher = Match4PCS(opts, device=device)
+        matcher = Match4PCS(opts, device=device, mesh=mesh)
     else:
         raise ValueError(f"unknown algorithm {algorithm!r}; "
                          "expected 'super4pcs' or '4pcs'")

@@ -38,6 +38,11 @@ import torch
 from . import _build
 
 
+#: float32 operations per pair test of both kernels (csrc/lcp.cu): 3
+#: sub, 3 mul, 2 add and the min
+PAIR_TEST_OPS = 9
+
+
 def _elem_budget(device: torch.device) -> int:
     # live elements of one d^2 block of the plain version
     return 1 << 27 if device.type == "cuda" else 1 << 22
@@ -696,6 +701,25 @@ def walk_ranges(tx, ty, tz, keys, grid, eps):
                            device=tx.device)
         return zero, zero
     return torch.stack(starts, 1), torch.stack(counts, 1)
+
+
+def pair_tests(transforms: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+               eps, index: GridIndex | None = None) -> int:
+    """The pair tests :func:`lcp_min_d2_within` makes on these inputs
+    (the key ranges of :func:`walk_ranges`, which the kernel walks),
+    summed over the pairs with the pairs axis."""
+    if p.shape[-2] == 0 or q.shape[-2] == 0:
+        return 0
+    index = _index_for(p, eps, index)
+    if q.ndim == 2:
+        transforms, q = transforms[None], q[None]
+    total = 0
+    for g in range(q.shape[0]):
+        _, keys, grid = index.part(g)
+        tx, ty, tz = (t.reshape(-1)
+                      for t in _transformed(transforms[g], q[g]))
+        total += int(walk_ranges(tx, ty, tz, keys, grid, eps)[1].sum())
+    return total
 
 
 def _walk_plain(transforms, q, pts, keys, grid, eps) -> torch.Tensor:

@@ -26,19 +26,28 @@ PyTorch counterpart of ``super4pcs_tpu.matcher``, the re-architecture of
   implicit-table engine above, and above ``scale_max_q`` samples the
   two-phase hierarchical solve (:meth:`_compute_scale_hierarchical`).
 
+- ``mesh`` (parallel/sharded.py) shards each step's bases over a
+  device mesh: the step's draws are drawn once on the mesh's first
+  device, each device runs its slice of the bases against its own
+  replica of the clouds and the run's indexes, and the best candidate
+  is reduced on the host;
+- ``Options.phase_timing`` times the phases of one warm step
+  (:meth:`_measure_phases`, ``stats["phase_seconds"]``) and attributes
+  them against the step's cost model (``step.cost_model``,
+  utils/roofline.py, ``stats["phase_roofline"]``).
+
 What the port leaves out, because it exists only for XLA compile time
 or TPU dispatch latency: the fused K-step dispatch, the background
 escalation compile (escalation here is a synchronous rebuild of the
-step at the wider factor), the two-steps-in-flight pipelining, the phase
-probes and the roofline model. In their place, on the card, one step
-and one refine run before the anytime clock starts (and again, off the
-clock, after an escalation), so the clock does not count the CUDA
-libraries' first calls or the verify's cell indexes. The banded engine's
-band index (ops/band_extract.py) is built once per run, before the
-clock, like the kernels. Not ported yet (they raise
-``NotImplementedError``): the rowcap engine in similarity mode (the JAX
-package's XLA ``approx_max_k`` capture) and bases-axis sharding
-(``mesh``). See ROADMAP.md.
+step at the wider factor), the two-steps-in-flight pipelining and the
+telescoped phase probes. In their place, on the card, one step and one
+refine run before the anytime clock starts (and again, off the clock,
+after an escalation), so the clock does not count the CUDA libraries'
+first calls or the verify's cell indexes. The banded engine's band
+index (ops/band_extract.py) is built once per run, before the clock,
+like the kernels. Not ported yet (it raises ``NotImplementedError``):
+the rowcap engine in similarity mode (the JAX package's XLA
+``approx_max_k`` capture). See ROADMAP.md.
 
 Randomness comes from a ``torch.Generator`` reseeded per step from
 ``(random_seed, step index)``, so a resumed run draws the trials an
@@ -62,6 +71,7 @@ import torch
 
 from .cloud import PointCloud
 from .kernels import lcp as lcp_kernel
+from .kernels.lcp import PAIR_TEST_OPS
 from .kernels import rowcap as rowcap_kernel
 from .options import (Options, DISTANCE_FACTOR, K_LARGE_NUMBER,
                       K_NUMBER_OF_DIAMETER_TRIALS)
@@ -98,16 +108,20 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def resolve_bases_per_step(opts: Options, nq: int) -> int:
+def resolve_bases_per_step(opts: Options, nq: int,
+                           mesh_size: int = 1) -> int:
     """Effective RANSAC width per step (see Options.bases_per_step):
     ``None`` gives 16 at nq > 1024, else 64, and 4 in similarity mode
-    above nq = 2048, where each base's allpairs table holds nq^2 rows
-    (the JAX package's rule)."""
+    above nq = 2048, where each base's allpairs table holds nq^2 rows,
+    rounded up to a multiple of ``mesh_size`` so that bases-axis
+    sharding divides evenly (the JAX package's rule)."""
     b = opts.bases_per_step
     if b is None:
         b = 16 if nq > 1024 else 64
         if opts.estimate_scale and nq > 2048:
             b = 4
+        if mesh_size > 1:
+            b = _round_up(b, mesh_size)
     return b
 
 
@@ -355,8 +369,66 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
             q_rot=(None if q_rots is None
                    else q_rots if t is None else q_rots[t]))
 
+    def _phase_costs(np_: int) -> dict:
+        """First-order operations + device-memory bytes of the trial
+        phases of ONE step (x bases_per_step), from the static
+        capacities that size the buffers: the JAX package's
+        ``_phase_costs`` term by term (its Pallas capture kernel's terms
+        for the rowcap engine), except the join's sort: the port sorts
+        every table once with ``torch.sort`` over int64 keys, counted as
+        the keys read once and the sorted keys and their int64
+        permutation written once, where the JAX package counts the
+        passes of a bitonic network."""
+        b = opts.bases_per_step
+        sel_fl = b * (n_tri * 40.0 + np_ * 24.0)
+        sel_by = b * np_ * 12.0
+        if engine == "dense":
+            ex_fl = b * 2 * float(nq) * nq * 12.0
+            ex_by = b * 2 * float(nq) * nq * 5.0
+        elif engine == "allpairs":
+            ex_fl = 0.0                  # the table is implicit
+            ex_by = float(nq) * nq       # the validity vector
+        elif engine == "banded":
+            ex_fl = b * float(ec1 + ec2) * 24.0
+            ex_by = b * (float(cp1 + cp2) * (2.0 * pc * 4.0 + 16.0)
+                         + float(ec1 + ec2) * 36.0)
+        else:                            # the capture kernel (K2)
+            # the Theta(nq^2) band test in registers and the hash of
+            # edge 0; device memory holds only the tables
+            ex_fl = b * float(nq) * nq * (40.0 + 25.0)
+            ex_by = b * (float(nq) * join_row_cap * 12.0
+                         + 2.0 * float(nq) * 4.0)
+        k1 = float(nq) * join_row_cap if join_row_cap else float(k_pairs)
+        k2_eff = float(k2_cap) if engine == "banded" else k1
+        if dense_join:
+            jn_fl = b * float(k_pairs) * k_pairs * 10.0
+            jn_by = b * float(k_pairs) * k_pairs * 1.0
+        else:
+            qb = min(opts.join_q_budget or 8192, int(k2_eff))
+            w = congruent.probe_window(dist_thr, cell_size)
+            probes = float(qb) * w ** 3
+            lg = max(math.log2(max(k1, 2.0)), 1.0)
+            rounds = min(lg, max(12.0, (int(k1) >> 16)
+                                 .bit_length() + 5.0))
+            # the capture kernel delivers the table hash
+            hash_fl = 0.0 if engine == "rowcap" else k1 * 20.0
+            hash_by = 0.0 if engine == "rowcap" else k1 * 16.0
+            jn_fl = b * (hash_fl + probes * opts.cell_candidates * 10.0)
+            jn_by = b * (hash_by + k1 * 24.0
+                         + probes * (2.0 * rounds * 4.0
+                                     + opts.cell_candidates * 8.0))
+        ft_fl = b * float(k_quads) * 600.0
+        ft_by = b * float(k_quads) * 96.0
+        return {
+            "select_extract": dict(flops=sel_fl + ex_fl,
+                                   hbm_bytes=sel_by + ex_by),
+            "join": dict(flops=jn_fl, hbm_bytes=jn_by),
+            "fit": dict(flops=ft_fl, hbm_bytes=ft_by),
+        }
+
     def try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-                  q_rgb, q_bounds=None, rot_draws=None):
+                  q_rgb, q_bounds=None, rot_draws=None, marks=None):
+        mark = marks.mark if marks is not None else (lambda name: None)
         ids, inv1, inv2, bvalid = select.select_base(p_pos, diam, *draws)
         n_sets, nb = ids.shape[:2]
         nt = n_sets * nb
@@ -392,6 +464,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
             (pairs1, v1, c1, d1), (pairs2, v2, c2, d2) = ext[:2]
             # the capture kernel emits the join hash of its table
             thash = ext[2] if len(ext) > 2 else None
+            mark("join")
             quads, qvalid, qcount, qdropped, q_sub = \
                 congruent.find_congruent_quads_grid(
                     q_pos, pairs1, v1, pairs2, v2, inv1, inv2, dist_thr,
@@ -404,6 +477,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
             zero = torch.zeros((), dtype=torch.int64, device=dev)
             for t in range(nt):
                 g = t // nb
+                mark("select_extract")
                 ext = extract_both(q_pos[g], q_norm[g], q_rgb[g],
                                    base_pos[t], base_norm[t], base_rgb[t],
                                    inv1[t], None,
@@ -412,6 +486,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
                 gate_t = (dict(seg_ratio=seg_ratio[t],
                                scale_band=geometry.SCALE_RATIO_DEV)
                           if est_scale else {})
+                mark("join")
                 if dense_join:
                     quads, qvalid, qcount = congruent.find_congruent_quads(
                         q_pos[g], pairs1, v1, pairs2, v2, inv1[t], inv2[t],
@@ -432,6 +507,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
             quads = torch.stack(quads_b)                 # (T, Kq, 4)
             qvalid = torch.stack(qvalid_b)
             counts = torch.stack(counts_b)
+        mark("fit")
         qvalid = qvalid & bvalid[:, None]
 
         # each trial's quads index its own pair's Q
@@ -449,6 +525,7 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
                     centroid1=centroid1, centroid2=centroid2,
                     ids=ids, quads=quads, counts=counts)
 
+    try_bases.phase_costs = _phase_costs
     return try_bases, (k_pairs, k_quads, n_cands)
 
 
@@ -458,16 +535,33 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
     "banded", see :func:`_build_try_bases`).
 
     ``step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
-    q_bounds=None, p_index=None)`` takes G pairs' clouds (``p_*`` (G,
-    np, .), ``q_*`` (G, nq, .), ``diam`` (G,) or a number), draws
-    ``bases_per_step`` bases per pair from the generator (pair by pair,
-    so G = 1 draws what a single-pair step draws), runs their trials
-    (see :func:`_build_try_bases`), compacts each pair's valid
-    candidates, verifies them (``lcp_scores_two_stage``, one launch per
-    stage for every pair, against ``p_index``, the run's
-    ``lcp.VerifyIndex`` of ``p_pos``) and returns each pair's best
-    one: the JAX package's step outputs with a leading G (its
-    pairs-axis ``vmap``).
+    q_bounds=None, p_index=None, marks=None, stages=None)`` takes G
+    pairs' clouds (``p_*`` (G, np, .), ``q_*`` (G, nq, .), ``diam`` (G,)
+    or a number), draws ``bases_per_step`` bases per pair from the
+    generator (``step.draw``), and runs them (``step.run``).
+
+    ``step.draw(gen, n_sets, n_p)``: the step's draws for ``n_sets``
+    pairs of ``n_p`` P samples, pair by pair (so G = 1 draws what a
+    single-pair step draws), as one tuple of tensors with a leading (G,
+    B): the base draws (first, seconds, thirds, see ops/select.py), then
+    each base's rotations (similarity mode's two, the banded window's
+    one). Sharding slices them along either axis.
+
+    ``step.run(draws, diam, ...)`` runs the trials of ``draws`` (see
+    :func:`_build_try_bases`; any B, the shard's), compacts each pair's
+    valid candidates (the cap scales with the shard's bases, as in the
+    JAX package), verifies them (``lcp_scores_two_stage``, one launch
+    per stage for every pair, against ``p_index``, the run's
+    ``lcp.VerifyIndex`` of ``p_pos``) and returns each pair's best one:
+    the JAX package's step outputs with a leading G (its pairs-axis
+    ``vmap``). ``marks``: a ``utils.profiling.PhaseMarks`` to mark the
+    phases in (select_extract, join, fit, verify); ``stages``: a list to
+    which the verify appends each K1 launch's inputs (for the cost
+    model).
+
+    ``step.cost_model(np_, verify_stages)``: the step's first-order
+    operations and bytes per phase (utils/roofline.py), the verify's
+    from ``verify_stages`` (``ops.lcp.stage_tests`` of ``stages``).
 
     Returns (step, (k_pairs, k_quads, n_cands)).
     """
@@ -482,35 +576,36 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
     # selected one's exact-delta score is reported apart
     rank_delta = delta * opts.search_delta_factor
 
-    def step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
-             q_bounds=None, p_index=None):
-        n_sets = p_pos.shape[0]
-        draws, rot_draws = [], []
+    def draw(gen, n_sets: int, n_p: int):
+        per_pair = []
         for _ in range(n_sets):
-            draws.append(select.draw_base_indices(
-                gen, p_pos.shape[1], b, opts.n_triangle_trials))
+            d = list(select.draw_base_indices(gen, n_p, b,
+                                              opts.n_triangle_trials))
             # the rotations per base (similarity mode's two, the banded
             # window's one), drawn after the pair's base draws so the
             # other engines' draws are the same without them
-            rots = []
             if opts.estimate_scale or banded:
-                rots.append(torch.randint(0, nq, (b,), generator=gen,
-                                          device=gen.device))
+                d.append(torch.randint(0, nq, (b,), generator=gen,
+                                       device=gen.device))
             if opts.estimate_scale:
-                rots.append(torch.randint(0, k_pairs, (b,), generator=gen,
-                                          device=gen.device))
-            if rots:
-                rot_draws.append(rots)
-        draws = tuple(torch.stack(d) for d in zip(*draws))
-        rot_draws = (tuple(torch.cat(d) for d in zip(*rot_draws))
-                     if rot_draws else None)
-        tb = try_bases(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm,
-                       q_rgb, q_bounds, rot_draws)
+                d.append(torch.randint(0, k_pairs, (b,), generator=gen,
+                                       device=gen.device))
+            per_pair.append(d)
+        return tuple(torch.stack(d) for d in zip(*per_pair))
+
+    def run(draws, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
+            q_bounds=None, p_index=None, marks=None, stages=None):
+        n_sets, b_local = draws[0].shape[:2]
+        rot_draws = tuple(r.reshape(-1) for r in draws[3:]) or None
+        tb = try_bases(draws[:3], diam, p_pos, p_norm, p_rgb, q_pos,
+                       q_norm, q_rgb, q_bounds, rot_draws, marks)
+        if marks is not None:
+            marks.mark("verify")
         flat_t = tb["transform"].reshape(n_sets, -1, 4, 4)
         flat_v = tb["cvalid"].reshape(n_sets, -1)
         # compact each pair's valid candidates before the (expensive)
-        # scoring
-        n_cands_local = max(128, n_cands)
+        # scoring; the cap scales with the shard's bases
+        n_cands_local = max(128, n_cands * b_local // b)
         if n_cands_local >= flat_v.shape[1]:
             idx = torch.arange(flat_v.shape[1], device=flat_v.device) \
                 .expand(n_sets, -1)
@@ -526,14 +621,16 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
             scores, sel = lcp.lcp_scores_two_stage(
                 cand_t, q_pos, p_pos, rank_delta,
                 coarse_q=opts.coarse_q, coarse_p=opts.coarse_p,
-                top_k=opts.verify_top_k, live=live, index=p_index)
+                top_k=opts.verify_top_k, live=live, index=p_index,
+                stages=stages)
             live = lcp._rows(live, sel)
             cand_t = lcp._rows(cand_t, sel)
             idx = lcp._rows(idx, sel)
         else:
             scores = lcp.lcp_scores(
                 cand_t, q_pos, p_pos, rank_delta,
-                None if p_index is None else p_index.get(1, rank_delta))
+                None if p_index is None else p_index.get(1, rank_delta),
+                stages=stages)
         scores = torch.where(live, scores, -1.0)
 
         gi = torch.arange(n_sets, device=scores.device)
@@ -542,28 +639,59 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
         if rank_delta != delta:
             exact = lcp.lcp_scores(
                 best_t[:, None], q_pos, p_pos, delta,
-                None if p_index is None else p_index.get(1, delta))[:, 0]
+                None if p_index is None else p_index.get(1, delta),
+                stages=stages)[:, 0]
             exact = torch.where(scores[gi, best] >= 0, exact, -1.0)
         else:
             exact = scores[gi, best]
         flat_i = idx[gi, best]
         bi = flat_i // k_quads
         qi = flat_i % k_quads
-        return dict(
+        out = dict(
             lcp=exact,
             rank_lcp=scores[gi, best],
             transform=best_t,
-            qcentroid1=tb["centroid1"].reshape(n_sets, b, 3)[gi, bi],
-            qcentroid2=tb["centroid2"].reshape(n_sets, b, k_quads, 3)[
-                gi, bi, qi],
-            base_ids=tb["ids"].reshape(n_sets, b, 4)[gi, bi],
-            congruent_ids=tb["quads"].reshape(n_sets, b, k_quads, 4)[
-                gi, bi, qi],
+            qcentroid1=tb["centroid1"].reshape(n_sets, b_local, 3)[gi, bi],
+            qcentroid2=tb["centroid2"].reshape(n_sets, b_local, k_quads,
+                                               3)[gi, bi, qi],
+            base_ids=tb["ids"].reshape(n_sets, b_local, 4)[gi, bi],
+            congruent_ids=tb["quads"].reshape(n_sets, b_local, k_quads,
+                                              4)[gi, bi, qi],
             n_congruent=n_valid,
             cands_dropped=cands_dropped,
-            pair_counts=tb["counts"].reshape(n_sets, b, 6),
+            pair_counts=tb["counts"].reshape(n_sets, b_local, 6),
         )
+        if marks is not None:
+            marks.stop()
+        return out
 
+    def step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
+             q_bounds=None, p_index=None, marks=None, stages=None):
+        if marks is not None:
+            marks.mark("select_extract")
+        return run(draw(gen, p_pos.shape[0], p_pos.shape[1]), diam, p_pos,
+                   p_norm, p_rgb, q_pos, q_norm, q_rgb, q_bounds, p_index,
+                   marks, stages)
+
+    def cost_model(np_: int, verify_stages) -> dict:
+        """The trial phases' costs (see :func:`_build_try_bases`) and
+        the verify's: the pair tests its pruned K1 launches made (9
+        float32 operations each, csrc/lcp.cu) and each launch's inputs
+        read once (the transforms, the queries, P as float4 points and
+        int32 keys) and output written once, as chip_smoke.py's K1
+        bound counts them. The JAX package counts its brute force
+        there (8 operations per candidate, query and P point)."""
+        costs = dict(try_bases.phase_costs(np_))
+        fl = by = 0.0
+        for g, c, nq_, np_s, tests in verify_stages:
+            fl += PAIR_TEST_OPS * tests
+            by += 4.0 * g * (16 * c + 3 * nq_ + 5 * np_s + c * nq_)
+        costs["verify"] = dict(flops=fl, hbm_bytes=by)
+        return costs
+
+    step.draw = draw
+    step.run = run
+    step.cost_model = cost_model
     return step, (k_pairs, k_quads, n_cands)
 
 
@@ -609,12 +737,32 @@ class Match4PCSBase:
     def __init__(self, options: Options, logger: Optional[Logger] = None,
                  device="cuda", mesh=None):
         """``device``: where the device arrays live and the kernels run
-        ("cuda" by default; "cpu" runs the kernels' plain versions)."""
+        ("cuda" by default; "cpu" runs the kernels' plain versions).
+
+        ``mesh``: a mesh of this process's devices
+        (``parallel.make_mesh``); each device step then shards its bases
+        over it (see parallel/sharded.py; bases_per_step must divide
+        evenly), and the mesh's first device takes ``device``'s place:
+        it draws the steps and runs the initial verify and the refine. A
+        mesh across processes (``parallel.distributed.global_mesh``)
+        carries ``register_batch``'s pairs axis, not a matcher's
+        bases."""
         if mesh is not None:
-            raise _not_ported("bases-axis sharding (mesh=)")
+            if mesh.group is not None:
+                raise ValueError(
+                    "a matcher shards its bases over the devices of one "
+                    "process; a mesh across processes carries "
+                    "register_batch's pairs axis")
+            if (options.bases_per_step is not None
+                    and options.bases_per_step % mesh.size != 0):
+                raise ValueError(
+                    f"bases_per_step ({options.bases_per_step}) must be "
+                    f"divisible by the mesh size ({mesh.size})")
+            device = mesh.devices[0]
         self.options = options
         self.logger = logger or Logger(LogLevel.NoLog)
         self.device = torch.device(device)
+        self._mesh = mesh
         self._b_eff = options.bases_per_step
 
     # ------------------------------------------------------------------
@@ -706,7 +854,8 @@ class Match4PCSBase:
                     lcp, transform)
 
         coarse_visitor.needs_global_transformation = lambda: needs_global
-        coarse = type(self)(coarse_opts, self.logger, device=self.device) \
+        coarse = type(self)(coarse_opts, self.logger, device=self.device,
+                            mesh=self._mesh) \
             .compute_transformation(P, Q, visitor=coarse_visitor)
         coarse_s = time.perf_counter() - t0
         if not coarse.improved:
@@ -731,7 +880,8 @@ class Match4PCSBase:
                     else 0.5 + 0.5 * min(fraction, 1.0), lcp, t)
 
         fine_visitor.needs_global_transformation = lambda: needs_global
-        fine = type(self)(fine_opts, self.logger, device=self.device) \
+        fine = type(self)(fine_opts, self.logger, device=self.device,
+                          mesh=self._mesh) \
             .compute_transformation(P, q2, visitor=fine_visitor)
 
         stats = dict(fine.stats)
@@ -886,18 +1036,20 @@ class Match4PCSBase:
                 device=dev)
             self._stats.update(band_cells=idx.m, band_cell_size=float(idx.g),
                                band_member_dropped=idx.member_dropped)
-        self._build_step()
+        # the step, the run's state on every mesh device, the CUDA
+        # kernels of this engine, and one step and one refine whose
+        # outputs are thrown away, before any timed phase: the analog of
+        # the JAX package's off-clock compile (the CUDA libraries' first
+        # calls and the verify's cell indexes)
+        tc = time.perf_counter()
         # the Q tile bounds of the capture's tile-pair rejection: Q is
         # fixed for the run, so they are computed once
         self._q_bounds = (rowcap_kernel.reject_bounds(self._d_q_pos[None])
                           if rowcap and opts.rowcap_tile_reject
                           and dev.type == "cuda" else None)
+        self._replicas = {}
+        self._build_step()
         self._gen = torch.Generator(device=dev)
-        # build the CUDA kernels of this engine, and run one step and
-        # one refine whose outputs are thrown away, before any timed
-        # phase: the analog of the JAX package's off-clock compile (the
-        # CUDA libraries' first calls and the verify's cell indexes)
-        tc = time.perf_counter()
         if dev.type == "cuda":
             lcp_kernel._lib()
             if rowcap:
@@ -917,18 +1069,18 @@ class Match4PCSBase:
         self.logger.verbose("Initial LCP: ", self._best_lcp)
 
     def _warm(self):
-        """On the card: one step and (with refine on) one refine of the
-        current transform, their outputs thrown away. It touches no
-        best-so-far, counter, trial count or visitor call, and the run's
-        draws do not move (each step reseeds the generator)."""
+        """On the card: one step (on every mesh device) and (with refine
+        on) one refine of the current transform, their outputs thrown
+        away. It touches no best-so-far, counter, trial count or visitor
+        call, and the run's draws do not move (each step reseeds the
+        generator)."""
         if self.device.type != "cuda":
             return
-        self._gen.manual_seed(_step_seed(self.options.random_seed, -1))
-        self._step_fn(self._gen, self._max_base_diameter,
-                      *self._step_args())
+        self._run_step(-1)
         if self._refine_active():
             self._refine(self._transform)
-        torch.cuda.synchronize(self.device)
+        for dev in (self._mesh.devices if self._mesh else (self.device,)):
+            torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------
     # device step: B complete RANSAC trials + batched verify
@@ -949,11 +1101,54 @@ class Match4PCSBase:
 
     def _build_step(self):
         nq = int(self._d_q_pos.shape[0])
+        mesh = self._mesh
         if self._b_eff is None:
-            self._b_eff = resolve_bases_per_step(self.options, nq)
-        self._step_fn, caps = build_step(self._opts_eff(), nq,
-                                         self._cone_mode, self._band_index)
+            self._b_eff = resolve_bases_per_step(
+                self.options, nq, mesh.size if mesh is not None else 1)
+        opts = self._opts_eff()
+        self._step_fn, caps = build_step(opts, nq, self._cone_mode,
+                                         self._band_index)
         self._k_pairs, self._k_quads, self._n_cands = caps
+        if mesh is None:
+            return
+        from .parallel.sharded import sharded_step
+        # one step per mesh device, over that device's replica (its
+        # band index)
+        steps = {}
+        for dev in dict.fromkeys(mesh.devices):
+            args, band = self._replica(dev)
+            steps[dev] = (self._step_fn if dev == self.device else
+                          build_step(opts, nq, self._cone_mode, band)[0],
+                          args)
+
+        def shard(draws, dev):
+            step, args = steps[dev]
+            out = step.run(tuple(d[None] for d in draws),
+                           self._max_base_diameter, *args)
+            return {k: v[0] for k, v in out.items()}
+
+        self._sharded = sharded_step(
+            shard, mesh, gather_telemetry=opts.sharded_gather_telemetry)
+
+    def _replica(self, dev):
+        """This run's clouds and indexes on mesh device ``dev``, made at
+        its first use and kept for the run: (the step's arguments after
+        ``diam``, the band index)."""
+        rep = self._replicas.get(dev)
+        if rep is None:
+            if dev == self.device:
+                rep = (self._step_args(), self._band_index)
+            else:
+                arrs = [a.to(dev)[None] for a in (
+                    self._d_p_pos, self._d_p_norm, self._d_p_rgb,
+                    self._d_q_pos, self._d_q_norm, self._d_q_rgb)]
+                bounds = (None if self._q_bounds is None
+                          else rowcap_kernel.reject_bounds(arrs[3]))
+                rep = ((*arrs, bounds, lcp.VerifyIndex(arrs[0])),
+                       None if self._band_index is None
+                       else self._band_index.to(dev))
+            self._replicas[dev] = rep
+        return rep
 
     def _step_args(self):
         """The step's cloud arguments: this run's one pair (G = 1)."""
@@ -963,12 +1158,18 @@ class Match4PCSBase:
                 self._p_index)
 
     def _run_step(self, step_idx: int) -> dict:
-        """One device step, its outputs fetched to the host."""
+        """One device step, its outputs fetched to the host. With a
+        mesh the step's draws are drawn once, on the mesh's first
+        device, and each device runs its slice of the bases."""
         self._gen.manual_seed(_step_seed(self.options.random_seed,
                                          step_idx))
-        out = self._step_fn(self._gen, self._max_base_diameter,
-                            *self._step_args())
-        return {k: v[0].cpu().numpy() for k, v in out.items()}
+        if self._mesh is None:
+            out = self._step_fn(self._gen, self._max_base_diameter,
+                                *self._step_args())
+            return {k: v[0].cpu().numpy() for k, v in out.items()}
+        draws = self._step_fn.draw(self._gen, 1,
+                                   int(self._d_p_pos.shape[0]))
+        return self._sharded(tuple(d[0] for d in draws))
 
     # ------------------------------------------------------------------
     # host anytime loop (mirrors Perform_N_steps, ref:hpp:208-274)
@@ -983,6 +1184,8 @@ class Match4PCSBase:
                 self._visitor_transform(needs_global))
         self._esc_enabled = (self._esc_next_factor() > self._search_sf
                              and self._refine_active())
+        if opts.phase_timing:
+            self._measure_phases()
 
         t0 = time.perf_counter()
         step_idx = self._trial // b   # continue the stream on resume
@@ -1003,6 +1206,10 @@ class Match4PCSBase:
 
             self._stats["n_congruent"] += int(out["n_congruent"])
             counts = out["pair_counts"]
+            if torch.is_tensor(counts):
+                # a sharded step's lazily gathered table (see
+                # Options.sharded_gather_telemetry)
+                counts = counts.cpu().numpy()
             # exact pre-cap pair count of both base edges
             self._stats["n_pairs"] += int(counts[:, :2].sum())
             # overflow counters are DROPPED-ITEM counts
@@ -1114,6 +1321,58 @@ class Match4PCSBase:
             time.perf_counter() - t0)
         self._stats["escalated_to"] = esc
         return warm
+
+    def _measure_phases(self, repeats: int = 5):
+        """The phases of a warm step (``stats["phase_seconds"]``: the
+        JAX package's keys select_extract, join, fit, verify and
+        step_total), logged as the reference-style timing table, and
+        their roofline against the step's cost model
+        (``stats["phase_roofline"]``, utils/roofline.py).
+
+        The phases are marked in one step (utils/profiling.PhaseMarks:
+        CUDA events on the card, the wall clock on the CPU) on the
+        matcher's device, over all of the step's bases; ``step_total``
+        is the wall time of one unmarked step as the search runs it
+        (sharded with a mesh), from the draws to the fetched outputs.
+        ``repeats`` marked and unmarked steps run in turns, each pair
+        on its own draws (step indexes 2^20 + i, off the search's
+        stream); the phases are the marked step of median span, the
+        total the median wall, so that one slow step (a pause of the
+        host) moves neither. All of it runs before the anytime
+        clock."""
+        from .utils import roofline
+        from .utils.profiling import PhaseMarks
+        from .utils.timer import PhaseTimers
+
+        def marked(i, stages=None):
+            self._gen.manual_seed(_step_seed(self.options.random_seed,
+                                             (1 << 20) + i))
+            marks = PhaseMarks(self.device)
+            self._step_fn(self._gen, self._max_base_diameter,
+                          *self._step_args(), marks=marks, stages=stages)
+            return marks.seconds()
+
+        stages = []
+        marked(0, stages)          # warm, and the verify's launches
+        runs, walls = [], []
+        for i in range(1, repeats + 1):
+            runs.append(marked(i))
+            t0 = time.perf_counter()
+            self._run_step((1 << 20) + i)
+            walls.append(time.perf_counter() - t0)
+        phases = sorted(runs, key=lambda p: sum(p.values()))[repeats // 2]
+        total = float(np.median(walls))
+        timers = PhaseTimers()
+        for name in ("select_extract", "join", "fit", "verify"):
+            timers.add(name, phases.get(name, 0.0))
+        timers.add("step_total", total)
+        self._stats["phase_seconds"] = dict(timers.phases)
+        self.logger.verbose(timers.table())
+        costs = self._step_fn.cost_model(int(self._d_p_pos.shape[0]),
+                                         lcp.stage_tests(stages))
+        roof = roofline.attribute(costs, dict(timers.phases))
+        self._stats["phase_roofline"] = roof
+        self.logger.verbose(roofline.table(roof))
 
     # ------------------------------------------------------------------
 

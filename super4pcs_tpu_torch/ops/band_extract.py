@@ -133,6 +133,18 @@ class BandIndex:
     def batched(self) -> bool:
         return self.members.ndim == 3
 
+    def to(self, device, pairs: slice = slice(None)) -> "BandIndex":
+        """A copy with every tensor on ``device``, and of a batched
+        index only the pairs ``pairs`` (a shard's); the meta stays the
+        whole index's, so a step sized by it is sized alike."""
+        def part(t):
+            return (t[pairs] if self.batched else t).to(device)
+
+        return dataclasses.replace(self, **{
+            k: part(getattr(self, k))
+            for k in ("members", "occ", "centers", "sorted_pair", "g",
+                      "table_dist")})
+
 
 def band_index_from_jax(arrays: dict, device="cpu") -> BandIndex:
     """A :class:`BandIndex` of the JAX package's index, given as a dict

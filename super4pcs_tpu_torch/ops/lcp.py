@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.lcp import build_index, lcp_min_d2_within
+from ..kernels.lcp import build_index, lcp_min_d2_within, pair_tests
 
 # Q-side padding sentinel: rows with |x| >= Q_PAD are excluded from the
 # LCP denominator, so a padded cloud's LCP equals its unpadded LCP
@@ -74,15 +74,33 @@ def _masked_lcp_mean(hits, q_pos):
     return (hits & qm).sum(dim=-1, dtype=torch.float32) / denom
 
 
-def lcp_scores(transforms, q_pos, p_pos, epsilon, index=None):
+def lcp_scores(transforms, q_pos, p_pos, epsilon, index=None,
+               stages=None):
     """(C,) float32 LCP fractions of ``transforms`` (C, 4, 4) mapping
     the centered Q samples onto the centered P samples ((G, C) for G
     pairs); a query counts when its nearest P point lies within
     ``epsilon`` (options.delta, ref:cc:517). ``index``: P's cell index
-    for ``epsilon`` (``VerifyIndex.get``), or None to build it here."""
+    for ``epsilon`` (``VerifyIndex.get``), or None to build it here.
+    ``stages``: a list to which the K1 launch's inputs are appended
+    (see :func:`stage_tests`), or None."""
+    if stages is not None:
+        stages.append((transforms, q_pos, p_pos, epsilon, index))
     d2 = lcp_min_d2_within(transforms, q_pos, p_pos, epsilon, index)
     eps2 = float(np.float32(epsilon) * np.float32(epsilon))
     return _masked_lcp_mean(d2 <= eps2, q_pos)
+
+
+def stage_tests(stages) -> list:
+    """``(G, C, nq, np, pair tests)`` of each K1 launch recorded by
+    ``lcp_scores(..., stages=)``: its shape and the pair tests the
+    pruned kernel makes (``kernels.lcp.pair_tests``), for the step's
+    cost model."""
+    out = []
+    for tr, q, p, eps, index in stages:
+        g = 1 if q.ndim == 2 else q.shape[0]
+        out.append((g, tr.shape[-3], q.shape[-2], p.shape[-2],
+                    pair_tests(tr, q, p, eps, index)))
+    return out
 
 
 def lcp_score_single(transform, q_pos, p_pos, epsilon, index=None):
@@ -111,7 +129,7 @@ def _rows(x, idx):
 def lcp_scores_two_stage(transforms, q_pos, p_pos, epsilon,
                          coarse_q: int = 64, coarse_p: int = 2048,
                          top_k: int = 2048, live=None,
-                         index: VerifyIndex | None = None):
+                         index: VerifyIndex | None = None, stages=None):
     """Two-stage LCP: coarse rank on subsampled clouds, exact score for
     the ``top_k`` survivors (with a mid-resolution stage above
     nq = 1024 that keeps the best 64).
@@ -122,7 +140,7 @@ def lcp_scores_two_stage(transforms, q_pos, p_pos, epsilon,
     axis each pair selects its own survivors, and each stage is one
     verify launch for all pairs. ``index``: the run's
     :class:`VerifyIndex` of ``p_pos`` (None builds each stage's index
-    on its call).
+    on its call). ``stages``: as in :func:`lcp_scores`.
 
     Returns (scores, scored_idx): exact scores and their indices into
     ``transforms`` (per pair: (G, k) each); non-selected candidates are
@@ -134,14 +152,14 @@ def lcp_scores_two_stage(transforms, q_pos, p_pos, epsilon,
         if transforms.ndim == 4:
             idx = idx.expand(transforms.shape[0], c)
         return (lcp_scores(transforms, q_pos, p_pos, epsilon,
-                           _stage_index(index, 1, epsilon)), idx)
+                           _stage_index(index, 1, epsilon), stages), idx)
 
     nq, np_ = q_pos.shape[-2], p_pos.shape[-2]
     sq = max(1, -(-nq // coarse_q))
     sp = max(1, -(-np_ // coarse_p))
     coarse = lcp_scores(transforms, q_pos[..., ::sq, :],
                         p_pos[..., ::sp, :], epsilon,
-                        _stage_index(index, sp, epsilon))
+                        _stage_index(index, sp, epsilon), stages)
     if live is not None:
         coarse = torch.where(live, coarse, -1.0)
     idx = _top_k(coarse, top_k)
@@ -151,11 +169,11 @@ def lcp_scores_two_stage(transforms, q_pos, p_pos, epsilon,
         mp = max(1, -(-np_ // 8192))
         mid = lcp_scores(_rows(transforms, idx), q_pos[..., ::mq, :],
                          p_pos[..., ::mp, :], epsilon,
-                         _stage_index(index, mp, epsilon))
+                         _stage_index(index, mp, epsilon), stages)
         if live is not None:
             mid = torch.where(_rows(live, idx), mid, -1.0)
         idx = _rows(idx, _top_k(mid, min(64, top_k)))
 
     exact = lcp_scores(_rows(transforms, idx), q_pos, p_pos, epsilon,
-                       _stage_index(index, 1, epsilon))
+                       _stage_index(index, 1, epsilon), stages)
     return exact, idx

@@ -19,9 +19,7 @@ ported; see ROADMAP.md):
   XLA ``approx_max_k`` rowcap capture, which is not ported. The rowcap
   engine always runs the hand-written capture kernel
   (``kernels/rowcap.py``).
-- ``steps_per_dispatch`` and ``sharded_gather_telemetry``: fused
-  multi-step dispatch and bases-axis sharding are not ported.
-- ``phase_timing``: the telescoped phase probes are not ported.
+- ``steps_per_dispatch``: fused multi-step dispatch is not ported.
 
 ``pair_engine="rowcap"`` with ``estimate_scale=True`` raises
 ``NotImplementedError`` in the matcher.
@@ -229,11 +227,17 @@ class Options:
     #: wall-clock budget or the terminate threshold is reached (fraction
     #: = time only).
     use_full_time_budget: bool = False
-    #: Bases-axis sharding option of the JAX package (not ported; no
-    #: effect).
+    #: Bases-axis sharding (a matcher with ``mesh``): True fetches each
+    #: shard's per-base ``pair_counts`` table with its results; False
+    #: leaves the tables on the devices, concatenated on the mesh's first
+    #: device, for the host to read when it needs them. The numbers are
+    #: the same (parallel/sharded.py::sharded_step).
     sharded_gather_telemetry: bool = True
-    #: Per-phase step breakdown of the JAX package (telescoped
-    #: sub-programs). Not ported; no effect.
+    #: Before the search, time the phases of a warm step (select_extract,
+    #: join, fit, verify, and step_total) into ``stats["phase_seconds"]``
+    #: and attribute them against the step's cost model in
+    #: ``stats["phase_roofline"]`` (CUDA events on the card, the wall
+    #: clock on the CPU; matcher._measure_phases). Off the anytime clock.
     phase_timing: bool = False
 
     def configure_overlap(self, overlap: float,

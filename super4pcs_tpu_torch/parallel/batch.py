@@ -1,4 +1,4 @@
-"""Batched multi-pair scan-graph registration (pairs axis) on one GPU.
+"""Batched multi-pair scan-graph registration (pairs axis).
 
 PyTorch counterpart of ``super4pcs_tpu.parallel.batch`` (BASELINE.json
 config 5): G independent scan pairs are registered by one step with a
@@ -6,7 +6,10 @@ pairs axis (``matcher.build_step`` over G pairs, the JAX package's
 ``vmap``): per step, every pair's base edges are captured by one kernel
 launch per edge over all G * B trials, every trial's join table goes
 through one sort, and each verify stage is one kernel launch for every
-pair's candidates.
+pair's candidates. With a mesh the pairs axis is sharded: each device
+runs that step on its G / m pairs, in one process or one process per
+device (``distributed``), and every pair's results reach every process
+after each step.
 
 Fixed shapes across pairs come from padding every sampled cloud to the
 batch maximum. P clouds are *repeat*-padded (duplicate P points never
@@ -35,7 +38,10 @@ budget left (straggler redemption; off when
 Where the port differs: randomness comes from a ``torch.Generator``
 reseeded per step from ``(random_seed, step index)`` and drawn pair by
 pair (the JAX package splits threefry keys), so runs of the two
-packages agree statistically, not trial for trial. On the card, one
+packages agree statistically, not trial for trial. Every process draws
+the whole step's draws on its first device and each shard takes its
+pairs' slice, so a sharded run draws what an unsharded one draws (the
+generators of two cards of one type give the same numbers for a seed). On the card, one
 step and one refine run before the clock starts, their outputs thrown
 away, and count in ``compile_seconds``: the same off-clock warm-up as
 the single-pair matcher (the CUDA libraries' first calls and the
@@ -46,8 +52,7 @@ When the engine resolved for the batch's largest Q is "banded", each
 pair's band index (ops/band_extract.py) is built once per run, padded
 to one shape and stacked (``build_batched_band_index``, sentinel rows
 left out), and trial ``t`` of the flat trial axis reads its pair's
-index. Not ported (it raises ``NotImplementedError``, see ROADMAP.md):
-``mesh=`` (pairs sharded over devices).
+index; a shard reads its pairs' part of it.
 """
 
 from __future__ import annotations
@@ -64,12 +69,13 @@ from ..kernels import lcp as lcp_kernel
 from ..kernels import rowcap as rowcap_kernel
 from ..matcher import (Match4PCS, MatchSuper4PCS, RegistrationResult,
                        _K_DIAMETER_FRACTION, _K_MIN_TRIALS, _K_SMALL_ERROR,
-                       _not_ported, _step_seed, build_step,
-                       resolve_bases_per_step, resolve_pair_engine)
+                       _step_seed, build_step, resolve_bases_per_step,
+                       resolve_pair_engine)
 from ..options import K_NUMBER_OF_DIAMETER_TRIALS, Options
 from ..ops import geometry, lcp, refine, sampling
 from ..ops.band_extract import build_batched_band_index
 from ..visitor import DummyTransformVisitor, visitor_needs_global
+from .sharded import Mesh, run_shards
 
 # Q-side sentinel coordinate — beyond ops.lcp.Q_PAD so the masked LCP
 # denominator excludes these rows (see ops/lcp.py::q_valid_mask).
@@ -115,25 +121,49 @@ def _prep(cloud: PointCloud, opts: Options, truncate: bool,
     return sampled, centroid
 
 
+class _Shard:
+    """One device's part of a batch: pairs ``lo:hi`` on ``dev``, their
+    step (over their band index), clouds, diameters, Q tile bounds and
+    verify indexes."""
+
+    def __init__(self, i, lo, hi, dev, step, arrays, diam, q_bounds,
+                 p_index):
+        self.i, self.lo, self.hi, self.dev, self.step = i, lo, hi, dev, step
+        self.arrays, self.diam = arrays, diam
+        self.q_bounds, self.p_index = q_bounds, p_index
+
+
 class BatchRun:
     """The set-up :func:`register_batch` runs before its clock starts:
-    ``pairs`` sampled, padded and put on ``device``, their batched step
-    built (and on the card warmed). ``run_step(step_idx)`` runs one
+    ``pairs`` sampled, padded and put on their devices, their batched
+    step built (and on the card warmed). ``run_step(step_idx)`` runs one
     step of every pair and returns its outputs (the JAX step's dict
-    with a leading G) as numpy arrays."""
+    with a leading G) as numpy arrays.
+
+    ``mesh`` (axis "pairs"): each of this process's mesh devices holds
+    its G / m pairs and runs the batched step over them; every step
+    ends with every pair's results in every process."""
 
     def __init__(self, pairs: Sequence[Tuple[PointCloud, PointCloud]],
                  options: Optional[Options] = None,
-                 algorithm: str = "super4pcs", device="cuda"):
+                 algorithm: str = "super4pcs", device="cuda", mesh=None):
         opts = self.opts = options or Options()
+        g = self.g = len(pairs)
+        if mesh is not None:
+            if g % mesh.size != 0:
+                raise ValueError(f"number of pairs ({g}) must be divisible "
+                                 f"by the mesh size ({mesh.size})")
+            # this process's first device draws the steps and runs the
+            # pairs' straggler redemption
+            device = mesh.devices[mesh.local_shards()[0]]
         dev = self.dev = torch.device(device)
+        self.mesh = mesh or Mesh(devices=(dev,), axis="pairs")
         cone_tol = (opts.cone_cos_tolerance if algorithm == "super4pcs"
                     else -1.0)
-        g = self.g = len(pairs)
         rng = np.random.default_rng(opts.random_seed)
         preps = [(_prep(p, opts, False, rng), _prep(q, opts, True, rng))
                  for p, q in pairs]
-        np_max = max(len(pp) for (pp, _), _ in preps)
+        np_max = self.np_max = max(len(pp) for (pp, _), _ in preps)
         self.nq_max = max(len(qq) for _, (qq, _) in preps)
         self.nq_real = np.asarray([len(qq) for _, (qq, _) in preps])
         if opts.bases_per_step is None:
@@ -171,28 +201,39 @@ class BatchRun:
                             _K_MIN_TRIALS)
 
         tc = time.perf_counter()
-        # the banded engine's per-pair indexes, one stacked index
+        # the banded engine's per-pair indexes, one stacked index of
+        # every pair (a shard reads its pairs' part); the step is sized
+        # by the whole index, so every shard's step is sized alike
         self.band_index = (build_batched_band_index(
             list(q_pos), opts.delta, cell_budget=opts.band_cell_budget,
             device=dev) if self.engine == "banded" else None)
         self.step, (_, self.k_quads, _) = build_step(
             opts, self.nq_max, cone_tol, self.band_index)
-        self.arrays = tuple(self.put(a) for a in (
-            p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb))
-        self.diam = self.put(diams)
         rowcap = self.engine == "rowcap"
-        # the Q tile bounds of the capture's tile-pair rejection, per
-        # pair
-        self.q_bounds = (rowcap_kernel.reject_bounds(self.arrays[3])
-                         if rowcap and opts.rowcap_tile_reject
-                         and dev.type == "cuda" else None)
-        # every pair's cell indexes of the verify, built once for the run
-        self.p_index = lcp.VerifyIndex(self.arrays[0])
+        self.shards = []
+        for i in self.mesh.local_shards():
+            d = self.mesh.devices[i]
+            lo, hi = self.mesh.bounds(g, i)
+            arrays = tuple(_put(a[lo:hi], d) for a in (
+                p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb))
+            step = self.step
+            if self.band_index is not None and (lo, hi, d) != (0, g, dev):
+                step = build_step(opts, self.nq_max, cone_tol,
+                                  self.band_index.to(d, slice(lo, hi)))[0]
+            self.shards.append(_Shard(
+                i, lo, hi, d, step, arrays, _put(diams[lo:hi], d),
+                # the Q tile bounds of the capture's tile-pair rejection
+                (rowcap_kernel.reject_bounds(arrays[3])
+                 if rowcap and opts.rowcap_tile_reject
+                 and d.type == "cuda" else None),
+                # the pairs' cell indexes of the verify, built once for
+                # the run
+                lcp.VerifyIndex(arrays[0])))
         self.gen = torch.Generator(device=dev)
         if dev.type == "cuda":
             # the kernels' builds, and one step and one refine whose
-            # outputs are thrown away, before the clock (see the module
-            # docstring)
+            # outputs are thrown away, on every device, before the clock
+            # (see the module docstring)
             lcp_kernel._lib()
             if rowcap:
                 rowcap_kernel._lib()
@@ -200,45 +241,79 @@ class BatchRun:
             if opts.refine_iterations > 0:
                 self.refine_pairs(np.tile(np.eye(4, dtype=np.float32),
                                           (g, 1, 1)))
-            torch.cuda.synchronize(dev)
+            for sh in self.shards:
+                torch.cuda.synchronize(sh.dev)
 
         # initial LCP of the identity per pair (ref:hpp:201); the masked
         # denominator makes sentinel padding exact here and below
-        eye = torch.eye(4, dtype=torch.float32, device=dev)
-        self.init_scores = lcp.lcp_scores(
-            eye.expand(g, 1, 4, 4), self.arrays[3], self.arrays[0],
-            opts.delta, self.p_index.get(1, opts.delta))[:, 0].cpu().numpy()
+        def init(sh):
+            eye = torch.eye(4, dtype=torch.float32, device=sh.dev)
+            return dict(s=lcp.lcp_scores(
+                eye.expand(sh.hi - sh.lo, 1, 4, 4), sh.arrays[3],
+                sh.arrays[0], opts.delta,
+                sh.p_index.get(1, opts.delta))[:, 0])
+
+        self.init_scores = self._on_shards(init)["s"]
         self.compile_seconds = time.perf_counter() - tc
 
-    def put(self, a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.dev)
+    @property
+    def index_builds(self) -> int:
+        """Verify indexes built so far, on every shard."""
+        return sum(sh.p_index.builds for sh in self.shards)
+
+    def _on_shards(self, fn) -> dict:
+        """``fn(shard)`` (a dict of tensors with a leading pairs axis)
+        on every shard of this process, all launched before any is
+        fetched; every pair's results, in pair order, in every
+        process."""
+        shard = {sh.i: sh for sh in self.shards}
+        got = run_shards(self.mesh, lambda i, d: fn(shard[i]))
+        return {k: np.concatenate([r[k] for r in got]) for k in got[0]}
 
     def run_step(self, step_idx: int) -> dict:
-        """Step ``step_idx`` of every pair (its draws seeded from the
-        run seed and the index), its outputs fetched to the host."""
+        """Step ``step_idx`` of every pair, its outputs fetched to the
+        host. Its draws are seeded from the run seed and the index and
+        drawn for all G pairs, pair by pair, on this process's first
+        device; each shard runs its pairs' slice."""
         self.gen.manual_seed(_step_seed(self.opts.random_seed, step_idx))
+        draws = self.step.draw(self.gen, self.g, self.np_max)
+
+        def one(sh):
+            return sh.step.run(
+                tuple(t[sh.lo:sh.hi].to(sh.dev) for t in draws), sh.diam,
+                *sh.arrays, sh.q_bounds, sh.p_index)
+
         with torch.no_grad():
-            out = self.step(self.gen, self.diam, *self.arrays,
-                            self.q_bounds, self.p_index)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+            return self._on_shards(one)
 
     def refine_pairs(self, src: np.ndarray):
         """The guarded refine of every pair's ``src`` (G, 4, 4): (the
-        refined (G, 4, 4), the exact LCP of both (G, 2)), the refines
-        one pair at a time, the scores in one verify launch."""
+        refined (G, 4, 4), the exact LCP of both (G, 2)), on each shard
+        the refines one pair at a time and the scores in one verify
+        launch."""
         opts = self.opts
-        d_p, d_q = self.arrays[0], self.arrays[3]
-        with torch.no_grad():
-            cur = self.put(src)
+
+        def one(sh):
+            d_p, d_q = sh.arrays[0], sh.arrays[3]
+            cur = _put(src[sh.lo:sh.hi], sh.dev)
             refined = torch.stack([refine.refine_transform(
                 cur[i], d_q[i], d_p[i], opts.delta,
                 iters=opts.refine_iterations,
                 start_factor=opts.search_delta_factor,
-                estimate_scale=opts.estimate_scale) for i in range(self.g)])
+                estimate_scale=opts.estimate_scale)
+                for i in range(sh.hi - sh.lo)])
             scores = lcp.lcp_scores(torch.stack([cur, refined], dim=1),
                                     d_q, d_p, opts.delta,
-                                    self.p_index.get(1, opts.delta))
-        return refined.cpu().numpy(), scores.cpu().numpy()
+                                    sh.p_index.get(1, opts.delta))
+            return dict(refined=refined, scores=scores)
+
+        with torch.no_grad():
+            out = self._on_shards(one)
+        return out["refined"], out["scores"]
+
+
+def _put(a, dev):
+    return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
 
 def register_batch(
@@ -254,8 +329,18 @@ def register_batch(
     """Register ``pairs[g] = (P_g, Q_g)`` for all g with one batched step.
 
     ``device``: where the clouds live and the kernels run ("cuda" by
-    default; "cpu" runs the kernels' plain versions). ``mesh`` (pairs
-    sharded over devices) is not ported and raises.
+    default; "cpu" runs the kernels' plain versions).
+
+    ``mesh`` (1-D, axis "pairs"; ``make_mesh`` over this process's
+    devices, or ``distributed.global_mesh()`` over one device per
+    process): G must be divisible by the mesh size, and each device
+    runs the batched step on its G / m pairs (its first device takes
+    ``device``'s place). After every step every process holds every
+    pair's results, so the loop state and ``on_checkpoint``'s state are
+    identical replicas, and process 0's clock decides the stop rule in
+    every process. The guarded refine runs on each shard's pairs.
+    Straggler redemption runs in single-process runs only (processes
+    would race its serial loop).
 
     ``visitor``: optional callable ``visitor(fraction, scores, mats)``
     with per-pair arrays ``scores (G,)`` / ``mats (G, 4, 4)`` — called
@@ -271,18 +356,19 @@ def register_batch(
     best-so-far, continuing the same draw stream.
 
     ``on_checkpoint``: optional callable receiving the serializable
-    state dict after every device step (persist it; a fresh run passing
-    it as ``resume_state`` continues where the dead one stopped).
+    state dict after every device step (persist it: every process holds
+    an identical replica, so any may write it; a fresh run passing it as
+    ``resume_state`` continues where the dead one stopped, sharded or
+    not).
     """
-    if mesh is not None:
-        raise _not_ported("pairs-axis sharding (mesh=)")
     visitor = visitor or DummyTransformVisitor()
     needs_global = visitor_needs_global(visitor)
     g = len(pairs)
     if g == 0:
         return []
-    run = BatchRun(pairs, options, algorithm, device)
+    run = BatchRun(pairs, options, algorithm, device, mesh)
     dev = run.dev
+    n_procs = run.mesh.world_size
     opts = run.opts
     k_quads, n_trials = run.k_quads, run.n_trials
     cent_p, cent_q = run.cent_p, run.cent_q
@@ -383,8 +469,17 @@ def register_batch(
                 on_checkpoint(snapshot_state())
             if upd.any():
                 visit(-1.0)
-            fraction_time = ((time.perf_counter() - t0)
-                             / opts.max_time_seconds)
+            elapsed = time.perf_counter() - t0
+            if n_procs > 1:
+                # the anytime stop rule must be the same in every
+                # process (one that stops while another launches the
+                # next step's collective hangs the job): process 0's
+                # clock decides
+                import torch.distributed as dist
+                clock = torch.tensor([elapsed], dtype=torch.float64)
+                dist.broadcast(clock, 0, group=run.mesh.group)
+                elapsed = float(clock[0])
+            fraction_time = elapsed / opts.max_time_seconds
             fraction = (fraction_time if opts.use_full_time_budget
                         else max(trial / n_trials, fraction_time))
             visit(min(fraction, 1.0))
@@ -419,7 +514,7 @@ def register_batch(
     # first, while wall budget remains.
     redeemed = {}
     if (opts.search_escalation_factor > opts.search_delta_factor
-            and opts.refine_iterations > 0):
+            and opts.refine_iterations > 0 and n_procs == 1):
         cls = MatchSuper4PCS if algorithm == "super4pcs" else Match4PCS
         order = sorted(
             (i for i in range(g)

@@ -170,8 +170,7 @@ def register_sequence(
         reference semantics) and each step reports the reference
         rot/tr diffs. Without GT, the *estimated* transform places each
         scan — the practical odometry mode.
-      options / algorithm / mesh: forwarded to the matcher per step
-        (``mesh`` is not ported: the matcher raises).
+      options / algorithm / mesh: forwarded to the matcher per step.
       device: where each step's registration runs ("cuda" by default;
         "cpu" runs the kernels' plain versions).
 

@@ -523,11 +523,17 @@ def test_batch_straggler_escalation(rng, make_transform):
 
 
 def test_register_batch_refuses_mesh_and_banded(rng, make_transform):
-    # mesh= is not ported; the banded engine is (its register_batch test
-    # is in tests/test_torch_band_extract.py)
+    # mesh= and the banded engine are ported (tests/test_torch_sharded.py,
+    # tests/test_torch_band_extract.py): a mesh that divides the pairs
+    # runs them, one that does not is refused with a ValueError
+    from super4pcs_tpu_torch.parallel import make_mesh
     pos, q, _ = make_pair(rng, make_transform, n=60)
     pairs = [(_pc(pos), _pc(q))] * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        register_batch(pairs, s4t.Options(delta=0.05), mesh=object(),
-                       device="cpu")
+    opts = s4t.Options(delta=0.05, sample_size=60, max_time_seconds=30,
+                       bases_per_step=4, random_seed=5).configure_overlap(0.9)
+    res = register_batch(pairs, opts,
+                         mesh=make_mesh(["cpu"] * 2, axis="pairs"))
+    assert len(res) == 2 and all(r.score > 0.8 for r in res)
+    with pytest.raises(ValueError, match="divisible"):
+        register_batch(pairs, opts, mesh=make_mesh(["cpu"] * 3))
     assert register_batch([], device="cpu") == []

@@ -562,3 +562,49 @@ def test_banded_registration_on_the_card(dev):
     assert res.score > 0.95
     assert np.median(np.linalg.norm(moved - target, axis=1)) < 0.05
     assert k1.lcp_min_d2_within.launches > before
+
+
+def test_mesh_of_one_card_twice_equals_the_unsharded_step(dev):
+    """A rowcap matcher over ``make_mesh(["cuda:0"] * 2)`` gives the
+    unsharded matcher's step outputs bit for bit (no candidate dropped,
+    each scored exactly: at most verify_top_k of them), and the launch
+    counters count both shards: twice the verify launches, and the
+    capture launches of each shard over its half of the bases."""
+    from super4pcs_tpu_torch.parallel import make_mesh
+    rng = np.random.default_rng(3)
+    n = 3000
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    p = (v * bump[:, None]).astype(np.float32)
+    ang = 0.8
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    q = (p @ R.T + np.float32([0.1, -0.05, 0.2])).astype(np.float32)
+    opts = s4t.Options(delta=0.02, sample_size=n, bases_per_step=4,
+                       pair_engine="rowcap", max_candidates=8192,
+                       verify_top_k=8192)
+    single = s4t.MatchSuper4PCS(opts, device=dev)
+    sharded = s4t.MatchSuper4PCS(opts, mesh=make_mesh(["cuda:0"] * 2))
+    for m in (single, sharded):
+        m._init(s4t.PointCloud(p), s4t.PointCloud(q))
+
+    def launches():
+        return (k2.rowcap_capture.launches, k2.rowcap_capture.captures,
+                k1.lcp_min_d2_within.launches)
+
+    for step in range(3):
+        before = launches()
+        a = single._run_step(step)
+        mid = launches()
+        b = sharded._run_step(step)
+        after = launches()
+        one = [y - x for x, y in zip(before, mid)]
+        two = [y - x for x, y in zip(mid, after)]
+        assert one == [2, 8, 1] and two == [4, 8, 2], (one, two)
+        assert int(a["cands_dropped"]) == 0 == int(b["cands_dropped"])
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(b[k]), a[k],
+                                          err_msg=k)

@@ -203,8 +203,16 @@ def test_not_ported_paths_raise():
     banded = s4t.MatchSuper4PCS(s4t.Options(delta=0.05, pair_engine="banded"),
                                 device="cpu").compute_transformation(pts, pts)
     assert banded.score == 1.0 and banded.stats["band_cells"] > 0
-    with pytest.raises(NotImplementedError):
-        s4t.MatchSuper4PCS(s4t.Options(), device="cpu", mesh=object())
+    # bases-axis sharding is ported (tests/test_torch_sharded.py): a mesh
+    # whose size divides bases_per_step runs, another is a ValueError
+    from super4pcs_tpu_torch.parallel import make_mesh
+    sharded = s4t.MatchSuper4PCS(
+        s4t.Options(delta=0.05, bases_per_step=4),
+        mesh=make_mesh(["cpu"] * 2)).compute_transformation(pts, pts)
+    assert sharded.score == 1.0
+    with pytest.raises(ValueError, match="divisible"):
+        s4t.MatchSuper4PCS(s4t.Options(bases_per_step=3),
+                           mesh=make_mesh(["cpu"] * 2))
     with pytest.raises(NotImplementedError):
         tmatcher.resolve_pair_engine(
             s4t.Options(estimate_scale=True, pair_engine="rowcap"), 4096)

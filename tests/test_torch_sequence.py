@@ -173,9 +173,17 @@ def test_protocol_matches_jax(rng, monkeypatch, algorithm, with_gt):
 
 
 def test_mesh_is_not_ported(rng):
+    # the mesh is ported (tests/test_torch_sharded.py): each step's
+    # matcher runs on it, and a mesh that does not divide the bases is a
+    # ValueError
+    from super4pcs_tpu_torch.parallel import make_mesh
     pts = TCloud(pos=rng.normal(size=(20, 3)).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        register_sequence([pts, pts], mesh=object(), device="cpu")
+    steps = register_sequence([pts, pts], mesh=make_mesh(["cpu"] * 2),
+                              device="cpu")
+    assert len(steps) == 1 and steps[0].result.score == 1.0
+    with pytest.raises(ValueError, match="divisible"):
+        register_sequence([pts, pts], Options(bases_per_step=3),
+                          mesh=make_mesh(["cpu"] * 2), device="cpu")
 
 
 def test_register_sequence_on_cpu_meets_reference_gates(tmp_path):
