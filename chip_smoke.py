@@ -8,8 +8,10 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build of the CUDA kernels from csrc/ (one nvcc per source, started
-   together), with the build time;
+2. build of the CUDA kernels from csrc/ (one nvcc per source) and of
+   the native IO parsers (csrc/io_native.cpp, g++), started together,
+   with the build time; the script fails when the IO library does not
+   load;
 3. K1 (LCP min-distance) at the main path's verify shapes: the exact
    stage (64 candidates x 8192 queries x the headline's sampled P), the
    mid stage (2048 x 512 x P[::10]) and the coarse stages (4096 and
@@ -57,14 +59,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    color filters of BASELINE Config 3; same gates, filtered K2 launches;
 5c. the CLI from files (``cli.main``, as ``super4pcs-torch`` runs it):
    the headline pair written as PLY with the port's writer (the read
-   time of a 100k-point file printed), ``-o 0.7 -d 0.01 -n 8192 -t 10
+   time of a 100k-point file printed, with the parser tier that read it
+   and the numpy parser's time), ``-o 0.7 -d 0.01 -n 8192 -t 10
    -m mat -r out``: exit 0, K1 and K2 launched, the Polyworks matrix
    within rotDiff <= 0.2 / trDiff <= 0.1 of the known pose, and the
    written geometry's LCP against P >= 0.7;
 5d. the same with the filtered clouds' normals and colors in the PLY
    files and ``-a 20 -c 60``: the same gates, filtered K2 launches;
 5e. 4PCS (``-x``) on a generated 30,000-vertex bumpy-sphere OBJ mesh
-   (``f a//n`` faces; its read time printed) and a rotated copy, at the
+   (``f a//n`` faces; its read time, tier and numpy time printed) and
+   a rotated copy, at the
    reference demo's sample size: ``-n 200 -o 0.9 -d 0.05``. The dense
    engine (K1, no K2), the pose gates, and ``-r out.obj`` keeps the
    faces;
@@ -130,6 +134,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 5o. the headline with ``phase_timing=True``: ``stats["phase_seconds"]``
    and the roofline table against the H100's peaks; the phases' sum
    within 10% of step_total, and the search phase 5's;
+5p. a step of each dense path (the recipe, 5e, 5g's first sequence
+   step, 5h's coarse phase), each pair formed as its phase forms it:
+   its kernels, wall, device busy time, idle share and peak memory;
+   the step's run over its B bases launching at most 2x the kernels of
+   the same run over one base; every trial of the step's trial function
+   equal to its one-base call bit for bit (transform, cvalid, quads,
+   counts);
 6. the 500-point known-pose recipe on the GPU (dense engine,
    lcp_min_d2_within only);
 7. a headline step's launches (2 capture launches, 3 verify
@@ -165,6 +176,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 #: H100 SXM peaks from NVIDIA's data sheet (at 700 W): float32 outside
@@ -557,11 +569,226 @@ def _axis_rot(axis, ang):
     return np.eye(3) + np.sin(ang) * kx + (1 - np.cos(ang)) * kx @ kx
 
 
+def _recipe_pair():
+    """The verify skill's 500-point known-pose recipe: (target, source),
+    source = target moved by a rotation of 1.1 rad about z."""
+    import numpy as np
+    r2 = np.random.default_rng(11)
+    v = r2.normal(size=(500, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    target = (v * bump[:, None]).astype(np.float32)
+    ang = 1.1
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    return target, (target - np.array([.4, -.2, .7], np.float32)) @ R
+
+
+def _mesh_pair():
+    """Phase 5e's meshes: the 30,000-vertex bumpy-sphere grid and its
+    copy rotated by 0.6 rad about (1, 1, 0) and shifted. Returns
+    (positions, normals, triangles, moved positions, moved normals, the
+    ground truth of the copy onto the first)."""
+    import numpy as np
+    mpos, mnrm, tris = _bumpy_mesh()
+    rot = _axis_rot([1, 1, 0], 0.6)
+    shift = np.array([0.05, 0.1, -0.1])
+    mgt = np.eye(4)
+    mgt[:3, :3] = rot.T
+    mgt[:3, 3] = -rot.T @ shift
+    return (mpos, mnrm, tris, (mpos @ rot.T + shift).astype(np.float32),
+            (mnrm @ rot.T).astype(np.float32), mgt)
+
+
+def _synth_model():
+    """bench.py's 4000-point synthetic sequence model (numpy seed 7)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    v = rng.normal(size=(4000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    return (v * bump[:, None]).astype(np.float32)
+
+
+def _sequence_options(s4):
+    """Phase 5g's options for bench.py's synthetic sequence (before its
+    overlap is configured)."""
+    return s4.Options(delta=0.03, sample_size=300, max_time_seconds=90,
+                      bases_per_step=16, max_quads=2048, max_candidates=4096,
+                      p_sample_budget=1024, random_seed=5)
+
+
+def _scale_options(s4):
+    """Phase 5h's options (hierarchical similarity at 16384 samples)."""
+    return s4.Options(delta=0.05, sample_size=16384, estimate_scale=True,
+                      random_seed=21, max_time_seconds=60
+                      ).configure_overlap(0.6, 0.9)
+
+
+def _dense_cases(s4, obj_dir):
+    """The dense engine's four paths, each as its phase forms the pair it
+    registers first: (label, matcher class, options, P, Q). The recipe
+    (phase 6, ``register``'s options); 5e's ``-x`` CLI run (the CLI's
+    options, the clouds read from the OBJ files it reads, written to
+    ``obj_dir``; returns their read time and tier beside); 5g's first
+    sequence step (view 0 onto view 1); 5h's coarse phase (its options
+    at scale_max_q samples, as the hierarchical solve forms them)."""
+    import numpy as np
+    from super4pcs_tpu_torch import cli
+    from super4pcs_tpu_torch import io as sio
+    from super4pcs_tpu_torch.utils import Logger, LogLevel
+    cases = []
+    target, source = _recipe_pair()
+    cases.append(("recipe", s4.MatchSuper4PCS, s4.Options().configure_overlap(
+        0.9).replace(delta=0.05, sample_size=500, max_time_seconds=30),
+        s4.PointCloud(target), s4.PointCloud(source)))
+    mpos, mnrm, tris, mpos2, mnrm2, _ = _mesh_pair()
+    mesh = sio.Mesh(tris=tris, tri_norm=tris)
+    paths = [os.path.join(obj_dir, f"d{i}.obj") for i in (1, 2)]
+    for path, pos, nrm in zip(paths, (mpos, mpos2), (mnrm, mnrm2)):
+        sio.write_obj(path, s4.PointCloud(pos, normal=nrm), mesh)
+    a = cli.Args()
+    cli.get_args(["super4pcs-torch", "-i", *paths, "-x", "-n", "200", "-o",
+                  "0.9", "-d", "0.05", "-t", "10", "--tpu-opts",
+                  "random_seed=1"], a)
+    clouds = [sio.read_object(path)[0] for path in paths]
+    cases.append(("cli-4pcs-mesh", s4.Match4PCS,
+                  cli.options_from_args(a, Logger(LogLevel.NoLog)),
+                  *clouds))
+    scans, _ = _sequence_views(_synth_model())
+    cases.append(("sequence", s4.MatchSuper4PCS,
+                  _sequence_options(s4).configure_overlap(0.5, 0.6),
+                  s4.PointCloud(scans[0]), s4.PointCloud(scans[1])))
+    opts = _scale_options(s4)
+    P, Q = _scale_pair()
+    cases.append(("scale-coarse", s4.MatchSuper4PCS, opts.replace(
+        sample_size=opts.scale_max_q,
+        max_time_seconds=max(opts.max_time_seconds * 0.4, 1.0)),
+        s4.PointCloud(P), s4.PointCloud(Q)))
+    return cases
+
+
+def _dense_step_profile(label, cls, opts, P, Q, check_trials=True):
+    """Phase 5p for one dense path: a matcher formed as the path forms it
+    (its samples, its step), then, outside every path, its step's
+    launches (kernels in a profiled step), wall (4 unprofiled steps),
+    device busy time, idle share and peak device memory; the launches of
+    the same step's ``run`` over its B bases and over one of them (the
+    trial axis must not add launches: at most 2x); and, with
+    ``check_trials``, every trial of the batched trial function equal to
+    its one-base call bit for bit (transform, cvalid, quads, counts).
+    Returns the numbers."""
+    import torch
+    from super4pcs_tpu_torch import matcher as mt
+    m = cls(opts, device="cuda")
+    m._init(P, Q)
+    nq = int(m._d_q_pos.shape[0])
+    opts_eff = m._opts_eff()
+    engine = mt.resolve_pair_engine(opts_eff, nq)
+    if engine != "dense":
+        raise SystemExit(f"5p {label}: the {engine!r} engine at nq={nq}")
+    b = m._b_eff
+    for i in range(2):
+        m._run_step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m._run_step(2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    for i in range(3, 7):
+        m._run_step(i)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / 4
+    evs = _device_events(lambda: [m._run_step(i) for i in (7, 8)])
+    busy = sum(t for _, t, _ in evs) / 2 / 1e3
+    kernels = len(evs) / 2
+
+    step = m._step_fn
+    diam = m._max_base_diameter
+    args = m._step_args()
+    m._gen.manual_seed(mt._step_seed(opts.random_seed, 9))
+    draws = step.draw(m._gen, 1, int(m._d_p_pos.shape[0]))
+    one = tuple(d[:, :1] for d in draws)
+
+    def fetch(ds):
+        return {k: v.cpu() for k, v in step.run(ds, diam, *args).items()}
+
+    fetch(draws), fetch(one)
+    run_b = len(_device_events(lambda: [fetch(draws) for _ in range(2)])) / 2
+    run_1 = len(_device_events(lambda: [fetch(one) for _ in range(2)])) / 2
+    out = dict(nq=nq, np=int(m._d_p_pos.shape[0]), B=b,
+               k_pairs=m._k_pairs, step_kernels=kernels, step_wall_ms=wall, step_busy_ms=busy,
+               idle_share=1.0 - busy / wall, peak_mib=peak,
+               run_kernels_B=run_b, run_kernels_1=run_1)
+    same = None
+    if check_trials:
+        tb, _ = mt._build_try_bases(opts_eff, nq, m._cone_mode)
+
+        def trials(lo, hi):
+            rot = tuple(r[:, lo:hi].reshape(-1) for r in draws[3:]) or None
+            return tb(tuple(d[:, lo:hi] for d in draws[:3]), diam,
+                      *args[:7], rot)
+
+        full = trials(0, b)
+        same = True
+        for t in range(b):
+            single = trials(t, t + 1)
+            for k in ("transform", "cvalid", "quads", "counts"):
+                x, y = full[k][t], single[k][0]
+                same &= bool(((x == y) | (x != x) & (y != y)).all())
+        out["trials_equal"] = same
+    _log(f"5p {label}: nq={nq} np={out['np']} B={b} k_pairs="
+         f"{m._k_pairs}; a step: {kernels:.0f} kernels, wall "
+         f"{wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+         f"{100 * out['idle_share']:.0f}%), peak {peak:.1f} MiB; the run "
+         f"over B={b} bases {run_b:.0f} kernels, over 1 base {run_1:.0f}"
+         + ("" if same is None else
+            f"; every trial equal to its one-base call={same}"))
+    if check_trials:
+        if run_b > 2 * run_1:
+            raise SystemExit(f"5p {label}: the step over {b} bases launched "
+                             f"{run_b:.0f} kernels, over one {run_1:.0f}")
+        if not same:
+            raise SystemExit(f"5p {label}: a trial of the batched step "
+                             f"differs from its one-base call")
+    return out
+
+
+def _dense_paths(s4, obj_dir):
+    """Phase 5p: :func:`_dense_step_profile` on each dense path."""
+    return {label: _dense_step_profile(label, cls, opts, P, Q)
+            for label, cls, opts, P, Q in _dense_cases(s4, obj_dir)}
+
+
+def _timed_read(path):
+    """Read ``path`` as the CLI does (``io.read_object``): (the cloud,
+    its read ms, the parser tier that read it, the read ms of the numpy
+    parser forced by SUPER4PCS_TPU_NO_NATIVE). The tier is "native"
+    when the C++ parser takes the file, else "numpy"."""
+    from super4pcs_tpu_torch import io as sio
+    from super4pcs_tpu_torch.io import native
+    parse = (native.native_parse_obj if path.endswith(".obj")
+             else native.native_parse_ply)
+    tier = "native" if parse(path) is not None else "numpy"
+    t0 = time.perf_counter()
+    cloud, _ = sio.read_object(path)
+    read_ms = 1e3 * (time.perf_counter() - t0)
+    os.environ["SUPER4PCS_TPU_NO_NATIVE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        sio.read_object(path)
+        numpy_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del os.environ["SUPER4PCS_TPU_NO_NATIVE"]
+    return cloud, read_ms, tier, numpy_ms
+
+
 def _cli_paths(P, Q, fP, fQ, s4, counters, by_path):
     """Phases 5c-5f: the CLI from files, each run a path of its own.
     Returns a dict of the numbers each run printed."""
     import io
-    import tempfile
 
     import numpy as np
     import torch
@@ -627,13 +854,12 @@ def _cli_paths(P, Q, fP, fQ, s4, counters, by_path):
         # 5c. the headline from PLY files
         sio.write_ply(f("P.ply"), s4.PointCloud(P))
         sio.write_ply(f("Q.ply"), s4.PointCloud(Q))
-        t0 = time.perf_counter()
-        back = sio.read_ply(f("P.ply"))
-        read_ms = 1e3 * (time.perf_counter() - t0)
+        back, read_ms, tier, numpy_ms = _timed_read(f("P.ply"))
         if not np.array_equal(back.pos, P):
             raise SystemExit("the PLY round trip changed P")
         _log(f"PLY read of {len(P)} points (binary, positions only): "
-             f"{read_ms:.1f} ms")
+             f"{read_ms:.1f} ms ({tier} parser; the numpy parser "
+             f"{numpy_ms:.1f} ms)")
         base = ["super4pcs-torch", "-i", f("P.ply"), f("Q.ply"), "-o", "0.7",
                 "-d", "0.01", "-n", "8192", "-t", "10", "-m", f("m.txt"),
                 "-r", f("out.ply")]
@@ -645,7 +871,8 @@ def _cli_paths(P, Q, fP, fQ, s4, counters, by_path):
             raise SystemExit("cli: the written geometry misses LCP 0.7")
         numbers["cli"] = dict(search_s=res.stats["search_seconds"],
                               trials=res.n_trials, lcp=lcp_c,
-                              ply_read_ms=read_ms)
+                              ply_read_ms=read_ms, ply_tier=tier,
+                              ply_numpy_read_ms=numpy_ms)
 
         # 5d. filtered: normals and colors through PLY, -a 20 -c 60
         sio.write_ply(f("fP.ply"), fP)
@@ -668,22 +895,14 @@ def _cli_paths(P, Q, fP, fQ, s4, counters, by_path):
 
         # 5e. 4PCS on a mesh at the reference demo's sample size (the
         # hippo demo's -n 200; the hippo assets are not in the repo)
-        mpos, mnrm, tris = _bumpy_mesh()
-        rot = _axis_rot([1, 1, 0], 0.6)
-        shift = np.array([0.05, 0.1, -0.1])
+        mpos, mnrm, tris, mpos2, mnrm2, mgt = _mesh_pair()
         mesh = sio.Mesh(tris=tris, tri_norm=tris)
         sio.write_obj(f("m1.obj"), s4.PointCloud(mpos, normal=mnrm), mesh)
-        sio.write_obj(f("m2.obj"), s4.PointCloud(
-            (mpos @ rot.T + shift).astype(np.float32),
-            normal=(mnrm @ rot.T).astype(np.float32)), mesh)
-        mgt = np.eye(4)
-        mgt[:3, :3] = rot.T
-        mgt[:3, 3] = -rot.T @ shift
-        t0 = time.perf_counter()
-        sio.read_obj(f("m1.obj"))
-        obj_ms = 1e3 * (time.perf_counter() - t0)
+        sio.write_obj(f("m2.obj"), s4.PointCloud(mpos2, normal=mnrm2), mesh)
+        _, obj_ms, obj_tier, obj_numpy_ms = _timed_read(f("m1.obj"))
         _log(f"OBJ read of {len(mpos)} vertices, {len(tris)} a//n faces: "
-             f"{obj_ms:.1f} ms")
+             f"{obj_ms:.1f} ms ({obj_tier} parser; the numpy parser "
+             f"{obj_numpy_ms:.1f} ms)")
         res, _ = run("cli-4pcs-mesh", [
             "super4pcs-torch", "-i", f("m1.obj"), f("m2.obj"), "-x", "-n",
             "200", "-o", "0.9", "-d", "0.05", "-t", "10", "-m", f("m.txt"),
@@ -701,7 +920,8 @@ def _cli_paths(P, Q, fP, fQ, s4, counters, by_path):
             raise SystemExit("cli-4pcs-mesh: the written mesh is off P")
         numbers["cli-4pcs-mesh"] = dict(search_s=res.stats["search_seconds"],
                                         trials=res.n_trials, score=res.score,
-                                        obj_read_ms=obj_ms)
+                                        obj_read_ms=obj_ms, obj_tier=obj_tier,
+                                        obj_numpy_read_ms=obj_numpy_ms)
 
         # 5f. HEALPix direction bins at the headline's width
         res, _ = run("cli-healpix", base + [
@@ -758,18 +978,8 @@ def _sequence_paths(P, s4, counters, by_path):
     """Phase 5g: register_sequence on bench.py's synthetic sequence with
     its options, then at the headline's width. Returns the search
     seconds of each step."""
-    import numpy as np
-    rng = np.random.default_rng(7)
-    v = rng.normal(size=(4000, 3))
-    v /= np.linalg.norm(v, axis=1, keepdims=True)
-    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
-            + 0.2 * np.sin(4 * v[:, 2]))
-    synth = (v * bump[:, None]).astype(np.float32)
     configs = (
-        ("sequence", synth, s4.Options(
-            delta=0.03, sample_size=300, max_time_seconds=90,
-            bases_per_step=16, max_quads=2048, max_candidates=4096,
-            p_sample_budget=1024, random_seed=5), False),
+        ("sequence", _synth_model(), _sequence_options(s4), False),
         ("sequence-full", P, s4.Options(
             delta=0.01, sample_size=8192, max_time_seconds=30,
             random_seed=5), True))
@@ -852,9 +1062,7 @@ def _scale_paths(s4, counters, by_path):
 
     # 5h. hierarchical: coarse similarity at scale_max_q, fine rigid on
     # s * Q at full width
-    opts = s4.Options(delta=0.05, sample_size=16384, estimate_scale=True,
-                      random_seed=21, max_time_seconds=60
-                      ).configure_overlap(0.6, 0.9)
+    opts = _scale_options(s4)
     runs = []
 
     def hier():
@@ -1524,6 +1732,7 @@ def main() -> int:
     from super4pcs_tpu_torch.kernels import _build
     from super4pcs_tpu_torch.kernels import lcp as k1
     from super4pcs_tpu_torch.kernels import rowcap as k2
+    from super4pcs_tpu_torch.io import native as io_native
     from super4pcs_tpu_torch.ops import sampling, select
 
     dev = torch.device("cuda")
@@ -1536,12 +1745,19 @@ def main() -> int:
     _log("torch", torch.__version__, "cuda", torch.version.cuda,
          "device", torch.cuda.get_device_name(0))
 
-    # 2. build: one nvcc per source, started together
+    # 2. build: one nvcc per source and g++ for the IO parsers, started
+    # together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(k._lib) for k in (k1, k2)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(k._lib) for k in (k1, k2)]
+        io_lib = pool.submit(io_native.get_lib)
+        for f in futures:
             f.result()
-    _log(f"build: {time.perf_counter() - t0:.3f} s")
+        if io_lib.result() is None:
+            raise SystemExit("the native IO parsers (csrc/io_native.cpp) "
+                             "did not build or load")
+    _log(f"build: {time.perf_counter() - t0:.3f} s (native IO library "
+         f"{io_native.library_path().name})")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -2090,18 +2306,15 @@ def main() -> int:
     file_numbers["phase-timing"] = _phase_timing_path(
         P, Q, opts, headline_res, s4, counters, by_path, report)
 
+    # 5p. a step of each dense path: launches, wall, busy, idle, peak
+    # memory, launches against one base, every trial against its
+    # one-base call (outside every path)
+    with tempfile.TemporaryDirectory() as tmp:
+        file_numbers["dense-steps"] = _dense_paths(s4, tmp)
+
     # 6. the 500-point known-pose recipe (dense engine, K1 only: its
     # pruned verify)
-    r2 = np.random.default_rng(11)
-    v = r2.normal(size=(500, 3))
-    v /= np.linalg.norm(v, axis=1, keepdims=True)
-    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
-            + 0.2 * np.sin(4 * v[:, 2]))
-    target = (v * bump[:, None]).astype(np.float32)
-    ang = 1.1
-    R = np.array([[np.cos(ang), -np.sin(ang), 0],
-                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
-    source = (target - np.array([.4, -.2, .7], np.float32)) @ R
+    target, source = _recipe_pair()
     r, counts, _, _ = _run_path(
         "recipe", lambda: s4.register(
             target, source, overlap=0.9, delta=0.05, sample_size=500,

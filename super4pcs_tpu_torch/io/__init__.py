@@ -2,8 +2,10 @@
 / matrix writers.
 
 The port's copy of ``super4pcs_tpu.io`` (the reference ``IOManager``,
-ref:src/super4pcs/io/io.h:34-109): numpy parsers following the same
-property-list rules (ref:doc/File-formats.md); no device involvement.
+ref:src/super4pcs/io/io.h:34-109): the native C++ PLY and OBJ parsers
+(io/native.py, built with g++ at first use) with numpy parsers beside
+them, following the same property-list rules (ref:doc/File-formats.md);
+no device involvement.
 Extension dispatch mirrors ref:io/io.cc:19-41.
 """
 

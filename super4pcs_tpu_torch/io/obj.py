@@ -1,8 +1,9 @@
 """Wavefront OBJ reader/writer.
 
-The port's copy of ``super4pcs_tpu.io.obj``, with its python row parser
-only (the JAX package's native C++ parser is not ported). Mirrors the
-reference parser semantics (ref:src/super4pcs/io/io.cc:140-267):
+The port's copy of ``super4pcs_tpu.io.obj``: the native C++ parser
+(io/native.py) reads a file when its library is loaded, the python row
+parser otherwise, with the same results. Mirrors the reference parser
+semantics (ref:src/super4pcs/io/io.cc:140-267):
 ``v``/``vn``/``vt``/``f``/``mtllib`` records; face normals are bound
 back onto vertices through the ``a//n`` (or ``a/t/n``) indices and the
 per-vertex normal array is rebuilt 1:1 with the vertices
@@ -95,8 +96,20 @@ def _read_obj_python(path: str):
 
 
 def read_obj(path: str):
-    """Read an OBJ file; returns (PointCloud, Mesh)."""
-    pos, vn, vt, faces, mtls = _read_obj_python(path)
+    """Read an OBJ file; returns (PointCloud, Mesh).
+
+    Uses the native C++ parser (io/native.py) when its library is
+    loaded; the python row parser, with the same semantics, otherwise."""
+    from .native import native_parse_obj
+    parsed = native_parse_obj(path)
+    if parsed is not None:
+        pos, vn, vt, faces, mtls = parsed
+        if pos is None:
+            raise ValueError(f"(OBJ) no vertices in {path}")
+        if faces is None:
+            faces = np.zeros((0, 3, 3), np.int32)
+    else:
+        pos, vn, vt, faces, mtls = _read_obj_python(path)
 
     tris = faces[:, :, 0]
     tri_tex = faces[:, :, 1]

@@ -1,8 +1,10 @@
 """PLY point-cloud reader/writer.
 
-The port's copy of ``super4pcs_tpu.io.ply`` (numpy parser only; the
-JAX package's native C++ parser is not ported). Follows the reference
-parser contract (ref:src/super4pcs/io/io_ply.h,
+The port's copy of ``super4pcs_tpu.io.ply``: the native C++ parser
+(io/native.py) reads a file when its library is loaded and it takes the
+file, the numpy parser otherwise (e.g. an element declared before
+``vertex``), with the same results. Follows the reference parser
+contract (ref:src/super4pcs/io/io_ply.h,
 ref:doc/File-formats.md): ASCII and binary (both endiannesses) input,
 the supported property lists being position [+ normals] [+ uchar RGB(A)
 colors]; ASCII additionally accepts double properties. Output is binary
@@ -77,6 +79,13 @@ def _skip_elements(f, fmt, elements):
 
 
 def read_ply(path: str) -> PointCloud:
+    # native C++ fast path (io/native.py); the numpy parser below is the
+    # reference implementation of the same contract
+    from .native import native_parse_ply
+    parsed = native_parse_ply(path)
+    if parsed is not None:
+        pos, nrm, rgb = parsed
+        return PointCloud(pos=pos, normal=nrm, rgb=rgb)
     with open(path, "rb") as f:
         fmt, elements, _ = _parse_header(f)
         vi = next((i for i, e in enumerate(elements)

@@ -10,10 +10,10 @@ PyTorch counterpart of ``super4pcs_tpu.matcher``, the re-architecture of
   over bases, and over pairs for parallel/batch.py, becomes a batch
   dimension: the rowcap engine captures every trial's edge in one
   kernel launch, the banded engine extracts it in one call over the
-  run's band index, and both sort every trial's join table in one sort;
-  the dense and allpairs engines loop over trials), then scores every
-  surviving candidate with the batched LCP kernel and takes an argmax
-  per pair;
+  run's band index, the dense engine masks them in one call, and the
+  join takes every trial's table at once; the allpairs engine loops
+  over trials), then scores every surviving candidate with the batched
+  LCP kernel and takes an argmax per pair;
 - the anytime contract (ref:hpp:236-255) is a host loop around the
   step: wall-clock budget, trial budget and terminate threshold are
   checked between steps, with the same ``stats`` keys and visitor
@@ -172,10 +172,11 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
     probe walk's in [0, k_pairs), on the banded engine its window's in
     [0, nq); else None.
 
-    The rowcap and banded engines run every trial at once: one capture
-    launch (banded: one extraction call) per base edge and one join
-    sort for all T tables. The dense and allpairs engines run their
-    trials one at a time (an allpairs table holds nq^2 rows).
+    The rowcap, banded and dense engines run every trial at once: one
+    capture launch (banded and dense: one extraction call) per base
+    edge, then one join over all T tables (the grid join's one sort, or
+    the dense join a chunk of trials at a time). The allpairs engine
+    runs its trials one at a time (its table holds nq^2 rows).
     """
     if opts.bases_per_step is None:
         opts = opts.replace(bases_per_step=resolve_bases_per_step(opts, nq))
@@ -458,48 +459,48 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
         nq_ = q_pos.shape[1]
         set_of = torch.arange(nt, device=dev) // nb
 
-        if engine in ("rowcap", "banded"):
+        if engine != "allpairs":
+            # every trial of the step at once: one extraction call (a
+            # capture launch on the rowcap engine) per base edge, then
+            # one join over all T tables
             ext = extract_both(q_pos, q_norm, q_rgb, base_pos, base_norm,
                                base_rgb, inv1, q_bounds, offs)
             (pairs1, v1, c1, d1), (pairs2, v2, c2, d2) = ext[:2]
             # the capture kernel emits the join hash of its table
             thash = ext[2] if len(ext) > 2 else None
             mark("join")
-            quads, qvalid, qcount, qdropped, q_sub = \
-                congruent.find_congruent_quads_grid(
+            if dense_join:
+                quads, qvalid, qcount = congruent.find_congruent_quads(
                     q_pos, pairs1, v1, pairs2, v2, inv1, inv2, dist_thr,
-                    cos_alpha, cone_tol, k_quads, table_hash=thash,
-                    **join_kw(None, q_rots), **gate)
+                    cos_alpha, cone_tol, k_quads,
+                    direction_bins=opts.direction_bins,
+                    healpix_nside=opts.healpix_nside, **gate)
+                qdropped = q_sub = torch.zeros_like(qcount)
+            else:
+                quads, qvalid, qcount, qdropped, q_sub = \
+                    congruent.find_congruent_quads_grid(
+                        q_pos, pairs1, v1, pairs2, v2, inv1, inv2,
+                        dist_thr, cos_alpha, cone_tol, k_quads,
+                        table_hash=thash, **join_kw(None, q_rots), **gate)
             counts = torch.stack([c1, c2, qcount, qdropped, d1 + d2,
                                   q_sub], dim=1)
         else:
+            # allpairs: one trial at a time (its table holds nq^2 rows)
             quads_b, qvalid_b, counts_b = [], [], []
-            zero = torch.zeros((), dtype=torch.int64, device=dev)
             for t in range(nt):
                 g = t // nb
                 mark("select_extract")
-                ext = extract_both(q_pos[g], q_norm[g], q_rgb[g],
-                                   base_pos[t], base_norm[t], base_rgb[t],
-                                   inv1[t], None,
-                                   offs[t] if est_scale else None)
-                (pairs1, v1, c1, d1), (pairs2, v2, c2, d2) = ext
-                gate_t = (dict(seg_ratio=seg_ratio[t],
-                               scale_band=geometry.SCALE_RATIO_DEV)
-                          if est_scale else {})
+                (_, v1, c1, d1), (_, v2, c2, d2) = extract_both(
+                    q_pos[g], None, None, None, None, None, None, None,
+                    None)
                 mark("join")
-                if dense_join:
-                    quads, qvalid, qcount = congruent.find_congruent_quads(
-                        q_pos[g], pairs1, v1, pairs2, v2, inv1[t], inv2[t],
+                quads, qvalid, qcount, qdropped, q_sub = \
+                    congruent.find_congruent_quads_grid(
+                        q_pos[g], None, v1, None, v2, inv1[t], inv2[t],
                         dist_thr, cos_alpha[t], cone_tol, k_quads,
-                        direction_bins=opts.direction_bins,
-                        healpix_nside=opts.healpix_nside, **gate_t)
-                    qdropped = q_sub = zero
-                else:
-                    quads, qvalid, qcount, qdropped, q_sub = \
-                        congruent.find_congruent_quads_grid(
-                            q_pos[g], pairs1, v1, pairs2, v2, inv1[t],
-                            inv2[t], dist_thr, cos_alpha[t], cone_tol,
-                            k_quads, **join_kw(t, q_rots), **gate_t)
+                        **join_kw(t, q_rots),
+                        seg_ratio=seg_ratio[t],
+                        scale_band=geometry.SCALE_RATIO_DEV)
                 quads_b.append(quads)
                 qvalid_b.append(qvalid)
                 counts_b.append(torch.stack([c1, c2, qcount, qdropped,

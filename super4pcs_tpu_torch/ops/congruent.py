@@ -28,26 +28,14 @@ import numpy as np
 import torch
 
 from . import healpix as _healpix
-from .masking import masked_indices, masked_indices_2d
+from . import masking as _masking
+from .masking import masked_indices
 from ..kernels.rowcap import SENT, cell_hash_of
-
-
-def invariant_points(pos, pairs, invariant):
-    """``e = p_first + invariant * (p_second - p_first)``
-    (ref:4pcs.cc:87, super4pcs.cc:123)."""
-    a = pos[pairs[:, 0]]
-    b = pos[pairs[:, 1]]
-    return a + invariant * (b - a)
 
 
 def _norm3(v):
     return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
                       + v[..., 2] * v[..., 2])
-
-
-def pair_directions(pos, pairs):
-    d = pos[pairs[:, 1]] - pos[pairs[:, 0]]
-    return d / torch.clamp(_norm3(d), min=1e-30)[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -108,18 +96,25 @@ def _healpix_membership(pix_cand, circle_pix):
     return hit
 
 
+def _gather_rows(x, idx):
+    """``x[t, idx[t]]`` for (T, n, 3) points and (T, K) indices."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
 def find_congruent_quads(pos, pairs1, valid1, pairs2, valid2,
                          invariant1, invariant2, distance_threshold,
                          base_cos_alpha, cone_cos_tolerance,
                          capacity: int, direction_bins: str = "cone",
                          healpix_nside: int = 4, seg_ratio=None,
-                         scale_band: float = -1.0):
+                         scale_band: float = -1.0, trial_chunk=None):
     """Dense join of the two pair sets on invariant-point proximity.
 
     ``direction_bins`` selects the Super4PCS direction filter: "cone"
     (exact mask, the default) or "healpix" (rasterized ring-scheme bins,
     see :func:`healpix_circle_pixels`). Ignored when
-    ``cone_cos_tolerance < 0`` (4PCS mode).
+    ``cone_cos_tolerance < 0`` (4PCS mode). The cone's cosine is written
+    out as ``(x1 x2 + y1 y2) + z1 z2`` (no GEMM, whose order may change
+    with the batch).
 
     ``scale_band`` >= 0 turns on similarity mode's scale-consistency
     mask (the reference's MULTISCALE ratio gate, ref:match4pcsBase.cc:
@@ -129,38 +124,94 @@ def find_congruent_quads(pos, pairs1, valid1, pairs2, valid2,
     of its two pairs. Masking here keeps the scale-inconsistent
     collisions, which the fit would reject, out of ``capacity``.
 
+    Trial axis (the JAX package's ``vmap`` over a step's bases): with
+    ``valid1`` (T, K1) the tables are (T, K, 2), ``pos`` the G pairs'
+    (G, n, 3) with trial ``t`` on set ``t // (T // G)``, and
+    ``invariant1``, ``invariant2``, ``base_cos_alpha`` and ``seg_ratio``
+    (T,) tensors or shared numbers. The (T, K1, K2) planes are formed a
+    chunk of ``trial_chunk`` trials at a time (default: the device's
+    element budget, ``masking.trial_chunk``); each trial is compacted on
+    its own, so its outputs equal its own call's.
+
     Returns (quads (capacity, 4) int64 = (a, b, c, d), valid
-    (capacity,), count). Quad layout matches ref:super4pcs.cc:172-173:
-    (P_pair.first, P_pair.second, Q_pair.first, Q_pair.second).
+    (capacity,), count), with a leading T on the trial axis. Quad layout
+    matches ref:super4pcs.cc:172-173: (P_pair.first, P_pair.second,
+    Q_pair.first, Q_pair.second).
     """
-    e1 = invariant_points(pos, pairs1, invariant1)     # (K1, 3)
-    e2 = invariant_points(pos, pairs2, invariant2)     # (K2, 3)
-    d = [e1[:, None, c] - e2[None, :, c] for c in range(3)]
-    d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
-    mask = d2 <= distance_threshold * distance_threshold
-    mask &= valid1[:, None] & valid2[None, :]
-    if scale_band >= 0:
-        len1 = _norm3(pos[pairs1[:, 1]] - pos[pairs1[:, 0]])      # (K1,)
-        len2 = _norm3(pos[pairs2[:, 1]] - pos[pairs2[:, 0]])      # (K2,)
-        rr = seg_ratio * len2[None, :] / torch.clamp(len1[:, None],
-                                                     min=1e-30)
-        mask &= (rr - 1.0).abs() <= scale_band
-    if cone_cos_tolerance >= 0:
-        dir1 = pair_directions(pos, pairs1)
-        dir2 = pair_directions(pos, pairs2)
-        if direction_bins == "healpix":
-            pix1 = _healpix.vec2pix_ring(healpix_nside, dir1)   # (K1,)
-            circ = healpix_circle_pixels(dir2, base_cos_alpha,
-                                         healpix_nside)
-            mask &= _healpix_membership(pix1[:, None], circ[None])
-        else:
-            mask &= (dir1 @ dir2.T - base_cos_alpha).abs() \
-                <= cone_cos_tolerance
-    k2 = pairs2.shape[0]
-    flat_idx, valid, count = masked_indices_2d(mask, capacity)
-    quads = torch.cat([pairs1[flat_idx // k2], pairs2[flat_idx % k2]],
-                      dim=-1)
-    return quads, valid, count
+    single = valid1.ndim == 1
+    if single:
+        pos, pairs1, valid1, pairs2, valid2 = (
+            t[None] for t in (pos, pairs1, valid1, pairs2, valid2))
+    dev = pos.device
+    nt, k1 = valid1.shape
+    k2 = valid2.shape[1]
+    n_sets, n = pos.shape[:2]
+    set_of = torch.arange(nt, device=dev) // (nt // n_sets)
+    inv1 = _per_trial(invariant1, nt, dev)
+    inv2 = _per_trial(invariant2, nt, dev)
+    cone = cone_cos_tolerance >= 0
+    cos_a = _per_trial(base_cos_alpha, nt, dev) if cone else None
+    ratio = (_per_trial(seg_ratio, nt, dev) if scale_band >= 0 else None)
+    r2 = distance_threshold * distance_threshold
+    chunk = trial_chunk or _masking.trial_chunk(nt, k1 * k2, dev, "join")
+
+    def one(s, e):
+        tc = e - s
+        pts = (pos.expand(tc, n, 3) if n_sets == 1 else pos[set_of[s:e]])
+        p1, p2 = pairs1[s:e].long(), pairs2[s:e].long()
+        a1, b1 = _gather_rows(pts, p1[..., 0]), _gather_rows(pts, p1[..., 1])
+        a2, b2 = _gather_rows(pts, p2[..., 0]), _gather_rows(pts, p2[..., 1])
+        e1 = a1 + inv1[s:e, None, None] * (b1 - a1)          # (Tc, K1, 3)
+        e2 = a2 + inv2[s:e, None, None] * (b2 - a2)          # (Tc, K2, 3)
+        # d2 = (dx dx + dy dy) + dz dz, one difference plane live at once
+        d = e1[:, :, None, 0] - e2[:, None, :, 0]
+        d2 = d * d
+        for c in (1, 2):
+            d = e1[:, :, None, c] - e2[:, None, :, c]
+            d2 += d * d
+        del d
+        mask = d2 <= r2
+        del d2
+        mask &= valid1[s:e, :, None] & valid2[s:e, None, :]
+        if scale_band >= 0:
+            len1 = _norm3(b1 - a1)                           # (Tc, K1)
+            len2 = _norm3(b2 - a2)                           # (Tc, K2)
+            rr = (ratio[s:e, None, None] * len2[:, None, :]
+                  / torch.clamp(len1[:, :, None], min=1e-30))
+            mask &= (rr - 1.0).abs() <= scale_band
+            del rr
+        if cone:
+            dir1 = (b1 - a1) / torch.clamp(_norm3(b1 - a1),
+                                           min=1e-30)[..., None]
+            dir2 = (b2 - a2) / torch.clamp(_norm3(b2 - a2),
+                                           min=1e-30)[..., None]
+            if direction_bins == "healpix":
+                pix1 = _healpix.vec2pix_ring(healpix_nside,
+                                             dir1.reshape(-1, 3))
+                circ = healpix_circle_pixels(
+                    dir2.reshape(-1, 3),
+                    cos_a[s:e, None].expand(tc, k2).reshape(-1, 1, 1),
+                    healpix_nside).view(tc, k2, -1)
+                mask &= _healpix_membership(pix1.view(tc, k1, 1),
+                                            circ[:, None])
+            else:
+                cos12 = dir1[:, :, None, 0] * dir2[:, None, :, 0]
+                cos12 += dir1[:, :, None, 1] * dir2[:, None, :, 1]
+                cos12 += dir1[:, :, None, 2] * dir2[:, None, :, 2]
+                mask &= ((cos12 - cos_a[s:e, None, None]).abs()
+                         <= cone_cos_tolerance)
+                del cos12
+        flat_idx, valid, count = masked_indices(mask.view(tc, -1), capacity)
+        del mask
+        quads = torch.cat(
+            [torch.gather(pairs1[s:e], 1, (flat_idx // k2)[..., None]
+                          .expand(-1, -1, 2)),
+             torch.gather(pairs2[s:e], 1, (flat_idx % k2)[..., None]
+                          .expand(-1, -1, 2))], dim=-1)
+        return quads, valid, count
+
+    out = _masking.over_chunks(nt, chunk, one)
+    return tuple(o[0] for o in out) if single else out
 
 
 def probe_window(radius: float, cell: float | None) -> int:
@@ -211,6 +262,7 @@ def find_congruent_quads_grid(
     probe_budget: int | None = None, cell_size: float | None = None,
     table_hash=None, allpairs_cols: bool = False, q_uniform: bool = False,
     q_rot=None, seg_ratio=None, scale_band: float = -1.0,
+    trial_chunk=None,
 ):
     """Output-sensitive congruent-set join via a sorted spatial hash, for
     one trial or for T trials at once.
@@ -266,6 +318,12 @@ def find_congruent_quads_grid(
     ``scale_band`` >= 0 applies the scale-consistency mask of
     :func:`find_congruent_quads` to each candidate in the validation.
 
+    ``trial_chunk``: trials per call; by default the trials whose
+    (T, cell_candidates, probes) candidate planes fit the device's
+    element budget (``masking.trial_chunk``, "grid"), so a step of many
+    trials at a wide probe window is joined in a few calls, each with
+    its own sort, with every trial's outputs unchanged.
+
     Returns (quads (capacity, 4) int64, valid, count, dropped,
     q_subsampled): ``dropped`` counts per-cell cap and probe-budget
     drops, ``q_subsampled`` the second-side pairs beyond the budget (in
@@ -283,6 +341,38 @@ def find_congruent_quads_grid(
     dev = pos.device
     r = distance_threshold
     cell = cell_size if cell_size is not None else 2.0 * r
+    nt = valid1.shape[0]
+    if trial_chunk is None:
+        per_trial = cell_candidates * (
+            probe_budget if probe_budget is not None
+            else min(q_budget or 8192, valid2.shape[1])
+            * probe_window(r, cell) ** 3)
+        trial_chunk = _masking.trial_chunk(nt, per_trial, dev, "grid")
+    if trial_chunk < nt:
+        n_sets = pos.shape[0]
+        set_of = torch.arange(nt, device=dev) // (nt // n_sets)
+
+        def part(v, s, e, dtype=torch.float32):
+            if v is None:
+                return None
+            if torch.is_tensor(v) and v.ndim > 1:
+                return v[s:e]
+            return _per_trial(v, nt, dev, dtype)[s:e]
+
+        def run(s, e):
+            return find_congruent_quads_grid(
+                pos if n_sets == 1 else pos[set_of[s:e]],
+                part(pairs1, s, e), valid1[s:e], part(pairs2, s, e),
+                valid2[s:e], part(invariant1, s, e),
+                part(invariant2, s, e), distance_threshold,
+                part(base_cos_alpha, s, e), cone_cos_tolerance,
+                capacity, cell_candidates, q_budget, direction_bins,
+                healpix_nside, row_cap, probe_budget, cell_size,
+                part(table_hash, s, e), allpairs_cols, q_uniform,
+                part(q_rot, s, e, torch.int64),
+                part(seg_ratio, s, e), scale_band, trial_chunk=e - s)
+
+        return _masking.over_chunks(nt, trial_chunk, run)
     # scalars and constants are made on the device: a tensor created
     # from host memory synchronizes the stream
     cell_t = torch.full((), cell, dtype=torch.float32, device=dev)

@@ -301,14 +301,15 @@ def test_min_sq_dists_bit_identical_to_plain(dev, m, np_):
 def test_masked_indices_on_the_card_equal_cpu(dev, n, cap, frac):
     """The sync-free compaction every join runs, on the card, against
     the same function on the CPU (which tests/test_torch_ops.py holds
-    against the JAX package): flat and row-major 2-D forms."""
+    against the JAX package): a flat mask, and a mask compacted row by
+    row in one flat prefix sum (few long rows and many short ones)."""
     rng = np.random.default_rng(n + cap)
     mask = torch.as_tensor(rng.uniform(size=n) < frac)
     mask2 = torch.as_tensor(rng.uniform(size=(n // 40 + 1, 40)) < frac)
-    for fn, m in ((masking.masked_indices, mask),
-                  (masking.masked_indices_2d, mask2)):
-        ref = fn(m, cap)
-        got = fn(m.to(dev), cap)
+    mask3 = torch.as_tensor(rng.uniform(size=(3, n)) < frac)
+    for m in (mask, mask2, mask3):
+        ref = masking.masked_indices(m, cap)
+        got = masking.masked_indices(m.to(dev), cap)
         for r, g in zip(ref, got):
             assert g.device.type == "cuda"
             assert torch.equal(g.cpu(), r)
@@ -608,3 +609,152 @@ def test_mesh_of_one_card_twice_equals_the_unsharded_step(dev):
         for k in a:
             np.testing.assert_array_equal(np.asarray(b[k]), a[k],
                                           err_msg=k)
+
+
+def _bumpy(rng, n):
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    bump = (1 + 0.3 * np.sin(5 * v[:, 0]) * np.cos(3 * v[:, 1])
+            + 0.2 * np.sin(4 * v[:, 2]))
+    return (v * bump[:, None]).astype(np.float32)
+
+
+def _same_nan(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("scale", [False, True])
+def test_batched_dense_extraction_and_join_equal_per_trial(dev, scale):
+    """The dense extraction (both forms) and the dense join over T = 8
+    trials of G = 2 clouds on the card, each in one call (and a trial at
+    a time): every trial equal to its one-base call on the card, bit for
+    bit; HEALPix bins and the scale gate included."""
+    from super4pcs_tpu_torch.ops import congruent, pairs
+    rng = np.random.default_rng(8)
+    n, nt = (60 if scale else 400), 8
+    pos = torch.as_tensor(np.stack([_bumpy(rng, n) for _ in range(2)]),
+                          device=dev)
+    nrm = pos / torch.linalg.vector_norm(pos, dim=-1, keepdim=True)
+    rgb = (pos.abs() * 200).contiguous()
+    g_of = torch.arange(nt, device=dev) // (nt // 2)
+    ids = torch.as_tensor(np.stack([rng.choice(n, 4, replace=False)
+                                    for _ in range(nt)]), device=dev)
+    bases = [c[g_of[:, None], ids] for c in (pos, nrm, rgb)]
+    cfg = pairs.PairFilterConfig(
+        max_normal_difference=-1.0 if scale else 40.0,
+        max_color_distance=-1.0 if scale else 80.0,
+        use_distance_filter=not scale)
+    off = (torch.as_tensor(rng.integers(0, n, nt), device=dev) if scale
+           else None)
+    cap = n * (n - 1) if scale else n * 12
+    fns = ((pairs.extract_pairs,) if scale else
+           (pairs.extract_pairs, pairs.extract_pairs_dense_rowcap))
+    tables = None
+    for fn in fns:
+        for e0, e1 in ((0, 1), (2, 3)):
+            got = fn(pos, nrm, rgb, *bases, e0, e1, 0.05, cfg, capacity=cap,
+                     row_offset=off)
+            chunked = fn(pos, nrm, rgb, *bases, e0, e1, 0.05, cfg,
+                         capacity=cap, row_offset=off, trial_chunk=1)
+            for t in range(nt):
+                g = int(g_of[t])
+                one = fn(pos[g], nrm[g], rgb[g], *(b[t] for b in bases),
+                         e0, e1, 0.05, cfg, capacity=cap,
+                         row_offset=None if off is None else off[t])
+                for a, b, c in zip(got, one, chunked):
+                    assert torch.equal(a[t], b) and torch.equal(a[t], c[t])
+            if fn is pairs.extract_pairs:
+                tables = (tables or ()) + got[:2]
+    s1 = bases[0][:, 1] - bases[0][:, 0]
+    s2 = bases[0][:, 3] - bases[0][:, 2]
+    n1 = torch.linalg.vector_norm(s1, dim=-1)
+    n2 = torch.linalg.vector_norm(s2, dim=-1)
+    cos_a = ((s1 / n1[:, None]) * (s2 / n2[:, None])).sum(-1)
+    inv = torch.full((nt,), 0.4, device=dev)
+    gate = dict(seg_ratio=n1 / n2, scale_band=0.1) if scale else {}
+    for bins in ("cone", "healpix"):
+        got = congruent.find_congruent_quads(
+            pos, *tables, inv, 1.0 - inv, 0.05, cos_a, 0.3, 4096,
+            direction_bins=bins, **gate)
+        for t in range(nt):
+            g = int(g_of[t])
+            gate_t = ({k: (v[t] if torch.is_tensor(v) else v)
+                       for k, v in gate.items()})
+            one = congruent.find_congruent_quads(
+                pos[g], *(x[t] for x in tables), inv[t], 1.0 - inv[t],
+                0.05, cos_a[t], 0.3, 4096, direction_bins=bins, **gate_t)
+            for a, b in zip(got, one):
+                assert torch.equal(a[t], b)
+        assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("kw", [{}, dict(estimate_scale=True),
+                                dict(force_grid_join=True)])
+def test_dense_step_trials_equal_one_base_steps_on_the_card(dev, kw):
+    """A dense step's trial function over its B = 16 bases equals 16
+    one-base calls on the card: transform, cvalid, quads and counts bit
+    for bit."""
+    from super4pcs_tpu_torch import matcher
+    rng = np.random.default_rng(5)
+    p = _bumpy(rng, 800)
+    ang = 0.7
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    q = (p @ R.T + np.float32([0.1, -0.05, 0.2])).astype(np.float32)
+    opts = s4t.Options(delta=0.03, sample_size=500, bases_per_step=16,
+                       random_seed=2, **kw).configure_overlap(0.8)
+    m = s4t.MatchSuper4PCS(opts, device=dev)
+    m._init(s4t.PointCloud(p), s4t.PointCloud(q))
+    nq = int(m._d_q_pos.shape[0])
+    assert matcher.resolve_pair_engine(opts, nq) == "dense"
+    tb, _ = matcher._build_try_bases(m._opts_eff(), nq, m._cone_mode)
+    args = m._step_args()
+    m._gen.manual_seed(4)
+    draws = m._step_fn.draw(m._gen, 1, int(m._d_p_pos.shape[0]))
+
+    def trials(lo, hi):
+        rot = tuple(r[:, lo:hi].reshape(-1) for r in draws[3:]) or None
+        return tb(tuple(d[:, lo:hi] for d in draws[:3]),
+                  m._max_base_diameter, *args[:7], rot)
+
+    full = trials(0, 16)
+    for t in range(16):
+        one = trials(t, t + 1)
+        for k in ("transform", "cvalid", "quads", "counts"):
+            assert _same_nan(full[k][t], one[k][0]), (t, k)
+    assert bool(full["cvalid"].any())
+
+
+def test_native_parser_loaded_and_equal_to_numpy(dev, tmp_path,
+                                                 monkeypatch):
+    """The port's native IO library builds (g++) and loads on the card's
+    machine, and its reads of a PLY and an OBJ equal the numpy tier's."""
+    from super4pcs_tpu_torch import io as sio
+    from super4pcs_tpu_torch.io import native
+    assert native.get_lib() is not None
+    rng = np.random.default_rng(6)
+    pos = _bumpy(rng, 500)
+    c = s4t.PointCloud(pos, normal=pos / np.linalg.norm(pos, axis=1,
+                                                        keepdims=True),
+                       rgb=(np.abs(pos) * 200).astype(np.float32))
+    tris = np.array([[0, 1, 2], [3, 4, 5]], np.int32)
+    sio.write_ply(str(tmp_path / "c.ply"), c)
+    sio.write_obj(str(tmp_path / "m.obj"), c,
+                  sio.Mesh(tris=tris, tri_norm=tris))
+    reads = []
+    for tier in ("native", "numpy"):
+        if tier == "numpy":
+            monkeypatch.setenv("SUPER4PCS_TPU_NO_NATIVE", "1")
+        else:
+            assert native.native_parse_ply(str(tmp_path / "c.ply"))
+            assert native.native_parse_obj(str(tmp_path / "m.obj"))
+        reads.append([sio.read_object(str(tmp_path / f))
+                      for f in ("c.ply", "m.obj")])
+    for (a, am), (b, bm) in zip(*reads):
+        for k in ("pos", "normal", "rgb"):
+            x, y = getattr(a, k), getattr(b, k)
+            assert (x is None) == (y is None)
+            if x is not None:
+                np.testing.assert_array_equal(x, y)
+        if am is not None:
+            np.testing.assert_array_equal(am.tris, bm.tris)

@@ -193,10 +193,12 @@ def test_masked_indices(rng, n, cap, frac):
     got = tm.masked_indices(torch.as_tensor(mask), cap)
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(_np(g), np.asarray(r))
+    # a mask with a leading axis is compacted row by row (the JAX
+    # function vmapped over the rows)
     mask2 = rng.uniform(size=(40, 30)) < frac
-    ref = _jit(jm.masked_indices_2d, "capacity")(jnp.asarray(mask2),
-                                                 capacity=cap)
-    got = tm.masked_indices_2d(torch.as_tensor(mask2), cap)
+    ref = jax.jit(jax.vmap(lambda m: jm.masked_indices(m, cap)))(
+        jnp.asarray(mask2))
+    got = tm.masked_indices(torch.as_tensor(mask2), cap)
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(_np(g), np.asarray(r))
 
@@ -387,15 +389,6 @@ def test_grid_join_hash_on_equals_off(rng):
 def test_join_helpers(rng):
     pos = rng.normal(size=(30, 3)).astype(np.float32)
     pairs = rng.integers(0, 30, size=(50, 2))
-    np.testing.assert_allclose(
-        _np(tc.invariant_points(_t(pos), torch.as_tensor(pairs), 0.3)),
-        np.asarray(jc.invariant_points(jnp.asarray(pos),
-                                       jnp.asarray(pairs), 0.3)),
-        atol=1e-6)
-    np.testing.assert_allclose(
-        _np(tc.pair_directions(_t(pos), torch.as_tensor(pairs))),
-        np.asarray(jc.pair_directions(jnp.asarray(pos),
-                                      jnp.asarray(pairs))), atol=1e-6)
     for r, c in ((0.02, 0.08), (0.04, 0.08), (0.08, 0.08), (0.1, None)):
         assert tc.probe_window(r, c) == jc.probe_window(r, c)
     np.testing.assert_array_equal(tc._window_offsets(3),

@@ -29,7 +29,8 @@ def test_import_leaves_jax_out():
     no jax in sys.modules."""
     code = ("import sys, super4pcs_tpu_torch, "
             "super4pcs_tpu_torch.kernels._build, super4pcs_tpu_torch.cli, "
-            "super4pcs_tpu_torch.io, super4pcs_tpu_torch.ops.healpix; "
+            "super4pcs_tpu_torch.io, super4pcs_tpu_torch.io.native, "
+            "super4pcs_tpu_torch.ops.healpix; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'super4pcs_tpu.')) or m == 'super4pcs_tpu'))")
