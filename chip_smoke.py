@@ -48,6 +48,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    pairs axis, the exact stage for G = 1 and 4 pairs in one launch with
    indexes built beforehand: each bit-identical to its plain version,
    with its time, index build, plain time and bound;
+4c. K2x (the XLA route's capture, both edges of T trials in one launch)
+   at nq 8192 T 16 with and without the four filters, nq 32768 T 16
+   and similarity nq 4096 T 4, rejection on and off: bit for bit each
+   other and the plain version outside the rows holding a candidate
+   within 1e-6 rad of the angle gate (rows at a band edge are compared
+   too); its time with the rejection on and off, the share of pair
+   tests the rejection skips, the bound of every pair test and of the
+   tests left;
 5. the headline registration — the 100k-point noisy bumpy-sphere pair
    of bench.py, Options(delta=0.01, sample_size=8192) through
    MatchSuper4PCS on the GPU (rowcap engine, rejection on).
@@ -181,7 +189,8 @@ before it and read just after (5n's in each of its processes, summed).
 
 With ``--scale-only`` it runs phases 1-2 and 5h-5i alone, so that 5h is
 the first registration in its process; with ``--dispatch-only``, phases
-1-2 and 5q; with ``--xla-only``, phases 1-2, 4c, 5r and 5s.
+1-2 and 5q; with ``--xla-only``, phases 1-2, 4c, 5r and 5s (and, with
+``--seeds``, 5r once per seed: search seconds, steps, trials, LCP).
 
 Exits with code 2 and prints no result when no CUDA device is present.
 """
@@ -547,6 +556,31 @@ def _seed_runs(seeds, opts, fopts, clouds, s4):
         _log(f"seeds {label}: median search_s rejection on "
              f"{np.median(search[True]):.3f}, off "
              f"{np.median(search[False]):.3f}")
+
+
+def _xla_seed_runs(seeds, P, Q, s4):
+    """Phase 5r once per seed (the headline on the XLA route): each
+    run's search seconds, steps, trials, LCP and pose; then the medians
+    of search seconds and steps."""
+    import numpy as np
+    gt = _ground_truth()
+    base = _headline_options(s4).replace(rowcap_kernel="xla")
+    search, steps = [], []
+    for seed in seeds:
+        m = s4.MatchSuper4PCS(base.replace(random_seed=seed), device="cuda")
+        res = m.compute_transformation(s4.PointCloud(P), s4.PointCloud(Q))
+        rot_diff, tr_diff = s4.reference_pose_diff(res.transform, gt)
+        st = res.stats["search_seconds"]
+        k = max(res.n_trials // m._b_eff, 1)
+        search.append(st)
+        steps.append(k)
+        _log(f"seeds xla-rowcap seed={seed}: score={res.score:.4f} "
+             f"trials={res.n_trials} steps={k} search_s={st:.3f} "
+             f"rotDiff={rot_diff:.4f} trDiff={tr_diff:.4f} "
+             f"escalated_to={res.stats.get('escalated_to', '-')}")
+        del m
+    _log(f"seeds xla-rowcap: median search_s {np.median(search):.3f}, "
+         f"median steps {np.median(steps):.0f}")
 
 
 def _read_polyworks(path):
@@ -2180,19 +2214,47 @@ def _layout_cases(s4, P, Q, fP, fQ, p_pos, q_pos, opts, dev):
     ]
 
 
+def _reject_share(k2x, args, rb, eps, cfg):
+    """(the share of K2x's pair tests that its rejection skips, the pair
+    tests left) for one call's ``args`` (one point set) and bounds
+    ``rb``: per trial and edge, the (row group, column) pairs of
+    ``rowcap_layout.column_reject_plain``, each weighted by its group's
+    rows."""
+    import torch
+    n, nt = args[0].shape[1], args[3].shape[0]
+    total = 2.0 * nt * n * n
+    if rb is None:
+        return 0.0, total
+    geo = k2x.layout_args(*args, eps, cfg)["geo"]
+    lo, hi = k2x.q_band(geo, cfg.max_angle > 0)
+    m = rb.spheres.shape[1]
+    rows = (n - 32 * torch.arange(m, device=args[0].device)).clamp(max=32)
+    kept = 0.0
+    for t in range(nt):
+        rej = k2x.column_reject_plain(args[0], rb, lo[:, t:t + 1],
+                                      hi[:, t:t + 1], 1)
+        kept += float(((~rej).sum(-1) * rows).sum())
+        del rej
+    return 1.0 - kept / total, kept
+
+
 def _layout_phase(s4, P, Q, fP, fQ, p_pos, q_pos, opts, dev):
     """Phase 4c: K2x (the XLA route's row-capped capture,
     kernels/rowcap_layout.py) against its plain version on the card at
     each of :func:`_layout_cases`' shapes, both edges of T trials in one
     launch, the bases drawn as the matcher draws them and a column
-    offset per trial: cols, hit and rc bit for bit outside the rows
-    holding a pair within 4 ulp of a band edge or a candidate within
-    1e-6 rad of the angle gate (both counted; every row is compared and
-    its mismatches printed); then its time (profiler device time), the
-    plain version's, its bound, and the library yardstick: torch.topk(keys,
-    row_cap) on a precomputed key plane of one capture, times the
-    captures of the call. Returns (rows by shape, largest |difference|
-    on the compared rows)."""
+    offset per trial, with the rejection on (its bounds computed once,
+    as the matcher does) and off: cols, hit and rc bit for bit outside
+    the rows holding a candidate within 1e-6 rad of the angle gate
+    (counted; the rows holding a pair within 4 ulp of a band edge are
+    counted and compared), and the two runs bit for bit each other;
+    then the kernel's time with the rejection on and off (profiler
+    device time), the plain version's, the share of pair tests the
+    rejection skips, the bound of every pair test and the bound of the
+    tests left, and the library yardstick: torch.topk(keys, row_cap) on
+    a precomputed key plane of one capture, times the captures of the
+    call. Returns (rows by shape, largest |difference| on the compared
+    rows)."""
     import torch
     from super4pcs_tpu_torch.kernels import rowcap_layout as k2x
     from super4pcs_tpu_torch.ops import select
@@ -2208,20 +2270,28 @@ def _layout_phase(s4, P, Q, fP, fQ, p_pos, q_pos, opts, dev):
         bases = tuple(c[ids] for c in p)
         offs = torch.randint(0, n, (nt,), generator=gen, device=dev)
         args = (*(c[None] for c in q), *bases)
+        rb = (k2x.reject_bounds(args[0]) if cfg.use_distance_filter
+              else None)
         before = k2x.rowcap_layout.launches
-        got = k2x.rowcap_layout(*args, eps, cfg, row_cap, col_offset=offs)
+        got = k2x.rowcap_layout(*args, eps, cfg, row_cap, col_offset=offs,
+                                bounds=rb)
         made = k2x.rowcap_layout.launches - before
+        off_run = k2x.rowcap_layout(*args, eps, cfg, row_cap,
+                                    col_offset=offs, tile_reject=False)
         ref = k2x.rowcap_layout_plain(*args, eps, cfg, row_cap,
                                       col_offset=offs)
         band, angle = k2x.gate_edge_rows(args[0], bases[0], eps, cfg)
         torch.cuda.synchronize()
-        mism = kept_mism = hits = captured = 0
+        on_off = all(torch.equal(x, y) for a, b in zip(got, off_run)
+                     for x, y in zip(a, b))
+        del off_run
+        mism = kept_mism = band_mism = hits = captured = 0
         for e, ((c, h, rc), (c0, h0, rc0)) in enumerate(zip(got, ref)):
             same = (c == c0).all(-1) & (h == h0).all(-1) & (rc == rc0)
-            excl = band[e] | angle[e]
             mism += int((~same).sum())
-            kept_mism += int((~same & ~excl).sum())
-            keep = ~excl
+            kept_mism += int((~same & ~angle[e]).sum())
+            band_mism += int((~same & band[e]).sum())
+            keep = ~angle[e]
             if bool(keep.any()):
                 err = max(err, int((c[keep].long() - c0[keep].long())
                                    .abs().max()),
@@ -2231,18 +2301,23 @@ def _layout_phase(s4, P, Q, fP, fQ, p_pos, q_pos, opts, dev):
         n_band, n_angle = int(band.sum()), int(angle.sum())
         del ref
 
-        def call():
+        def call(reject=True):
             return k2x.rowcap_layout(*args, eps, cfg, row_cap,
-                                     col_offset=offs)
+                                     col_offset=offs, tile_reject=reject,
+                                     bounds=rb if reject else None)
 
         ms = _kernel_ms(call, K2X_NAME, reps=10)
+        ms_off = (_kernel_ms(lambda: call(False), K2X_NAME, reps=10)
+                  if rb is not None else ms)
         plain_ms = _cuda_ms(lambda: k2x.rowcap_layout_plain(
             *args, eps, cfg, row_cap, col_offset=offs), reps=1, warmup=0)
-        # the bound: every (trial, edge, row, column) pair test, the
-        # filters on the pairs inside the band, each input read once and
-        # the tables written once
+        # the bounds: every (trial, edge, row, column) pair test, and the
+        # tests the rejection leaves, with the filters on the pairs
+        # inside the band, each input read once and the tables written
+        # once
         n_pad = k2x._round_up(n, 2048)
         tests = 2.0 * nt * n * n
+        share, left = _reject_share(k2x, args, rb, eps, cfg)
         dirs = cfg.max_angle > 0
         per_test = (K2X_OPS["dirs"] if dirs else K2X_OPS["band"]) \
             if cfg.use_distance_filter else K2X_OPS["no-band"]
@@ -2262,6 +2337,7 @@ def _layout_phase(s4, P, Q, fP, fQ, p_pos, q_pos, opts, dev):
                   + 2 * nt * n_pad * (row_cap + 1) * 4)
         bound_ms, bound_by = _bound(per_test * tests + filt * in_band,
                                     nbytes)
+        need_ms, need_by = _bound(per_test * left + filt * in_band, nbytes)
         keys = _key_plane(q[0], q[1], q[2], bases[0][0], bases[1][0],
                           bases[2][0], int(offs[0]), eps, cfg)
         plane_ms = _cuda_ms(lambda: torch.topk(keys, row_cap, dim=-1),
@@ -2272,23 +2348,32 @@ def _layout_phase(s4, P, Q, fP, fQ, p_pos, q_pos, opts, dev):
         _log(f"K2x {label}: {nt} trials x 2 edges in {made} launch, "
              f"row_cap={row_cap}, hits={hits} captured={captured}; rows "
              f"differing from the plain version: {mism} of "
-             f"{2 * nt * n_pad}, {kept_mism} outside the excluded rows "
-             f"({n_band} rows hold a pair within 4 ulp of a band edge, "
-             f"{n_angle} a candidate within 1e-6 rad of the angle gate); "
-             f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound "
-             f"{bound_ms:.4f} ms ({bound_by}; {in_band} pairs in band); "
+             f"{2 * nt * n_pad}, {kept_mism} outside the angle-gate rows "
+             f"({n_angle} rows hold a candidate within 1e-6 rad of the "
+             f"angle gate; {n_band} rows hold a pair within 4 ulp of a "
+             f"band edge, {band_mism} of them differ); rejection on equals "
+             f"off bit for bit={on_off}, it skips {100 * share:.2f}% of "
+             f"the pair tests; kernel {ms:.4f} ms (rejection off "
+             f"{ms_off:.4f}) plain {plain_ms:.3f} ms bound {bound_ms:.4f} "
+             f"ms ({bound_by}; {in_band} pairs in band), after rejection "
+             f"{need_ms:.4f} ms ({need_by}; {left:.0f} pair tests); "
              f"library torch.topk(keys, {row_cap}) {plane_ms:.3f} ms a "
              f"plane x {2 * nt} planes = {library_ms:.3f} ms")
-        if made != 1 or kept_mism or hits == 0:
+        if made != 1 or kept_mism or not on_off or hits == 0:
             raise SystemExit(f"K2x {label} disagrees with its plain "
-                             f"version or launched {made} times")
-        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=library_ms,
+                             f"version or with itself without rejection, "
+                             f"or launched {made} times")
+        rows[label] = dict(ms=ms, ms_no_reject=ms_off, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bound_after_reject_ms=need_ms,
+                           bound_after_reject_by=need_by,
+                           rejected_share=share, pair_tests_left=left,
+                           library_ms=library_ms,
                            library_plane_ms=plane_ms, trials=nt,
                            row_cap=row_cap, hits=hits, captured=captured,
                            rows_differing=mism, band_edge_rows=n_band,
                            angle_gate_rows=n_angle)
-        del got, args
+        del got, args, rb
         torch.cuda.empty_cache()
     return rows, err
 
@@ -2371,7 +2456,8 @@ def _plain_step(m, draws):
 
     got = fetch()
     saved = k2x.rowcap_layout, olcp.lcp_min_d2_within
-    k2x.rowcap_layout = k2x.rowcap_layout_plain
+    k2x.rowcap_layout = (lambda *a, tile_reject=True, bounds=None, **k:
+                         k2x.rowcap_layout_plain(*a, **k))
     olcp.lcp_min_d2_within = k1.lcp_min_d2_within_plain
     try:
         ref = fetch()
@@ -2570,6 +2656,9 @@ def main() -> int:
         numbers = {"xla-rowcap": _xla_path(P, Q, s4, counters, by_path,
                                            report)}
         numbers.update(_similarity_rowcap_paths(s4, counters, by_path))
+        if "--seeds" in sys.argv:
+            _xla_seed_runs([int(x) for x in sys.argv[
+                sys.argv.index("--seeds") + 1].split(",")], P, Q, s4)
         _log("entry points:", json.dumps(numbers))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3227,7 +3316,9 @@ def main() -> int:
              max_abs_err=float(k2x_err),
              shapes=k2x_rows,
              **{k: k2x_rows["nq=8192 T=16"][k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "rejected_share", "bound_after_reject_ms",
+                 "bound_after_reject_by")}),
     ]
     if "--seeds" in sys.argv:
         seeds = [int(x) for x in

@@ -171,6 +171,21 @@ def uses_capture_kernel(opts: Options, engine: str) -> bool:
             and not opts.estimate_scale)
 
 
+def capture_bounds(opts: Options, engine: str, q_pos):
+    """The Q bounds of a capture's rejection, for the clouds ``q_pos``
+    (G, n, 3) on the card: K2's tile spheres (``rowcap.reject_bounds``)
+    or K2x's row order and spheres (``rowcap_layout.reject_bounds``,
+    with the distance band only), per the engine; None on the CPU, with
+    ``rowcap_tile_reject`` off, or on another engine."""
+    if not opts.rowcap_tile_reject or q_pos.device.type != "cuda":
+        return None
+    if uses_capture_kernel(opts, engine):
+        return rowcap_kernel.reject_bounds(q_pos)
+    if engine == "rowcap" and not opts.estimate_scale:
+        return rowcap_layout_kernel.reject_bounds(q_pos)
+    return None
+
+
 def _step_seed(random_seed: int, step_idx: int) -> int:
     """Seed of one step's draws: a fixed function of the run seed and
     the step index, so a resumed run continues the same stream."""
@@ -190,9 +205,9 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
     q_bounds, rot_draws)`` runs one trial per base draw of G cloud
     pairs (the clouds (G, n, .), the draws (G, B, ...), see
     ops/select.py), over the flat trial axis T = G * B, trial ``t`` on
-    pair ``t // B``; ``q_bounds`` are the Q tile bounds of the capture
-    kernel's tile-pair rejection (``rowcap.reject_bounds``, (G, ...)),
-    or None; ``rot_draws`` are each trial's rotations, (T,) tensors: in
+    pair ``t // B``; ``q_bounds`` are the Q bounds of the capture's
+    rejection (:func:`capture_bounds`, over G sets), or None;
+    ``rot_draws`` are each trial's rotations, (T,) tensors: in
     similarity mode the dense capture's row rotation (the XLA capture's
     column rotation) in [0, nq) and the probe walk's in [0, k_pairs), on
     the banded engine its window's and on the XLA capture its column
@@ -385,7 +400,8 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
                 pos, normal, rgb, bpos, bnorm, brgb, eps_pairs, cfg,
                 row_cap=join_row_cap,
                 recall_target=opts.pair_recall_target, col_offset=off,
-                cols_only=True)
+                cols_only=True, tile_reject=opts.rowcap_tile_reject,
+                bounds=bounds)
 
     qb_default = opts.join_q_budget or 8192
     # allpairs: the nq^2-row table fills nearly every cell, so nearly
@@ -1205,11 +1221,10 @@ class Match4PCSBase:
         # the JAX package's off-clock compile (the CUDA libraries' first
         # calls and the verify's cell indexes)
         tc = time.perf_counter()
-        # the Q tile bounds of the capture's tile-pair rejection: Q is
-        # fixed for the run, so they are computed once
-        self._q_bounds = (rowcap_kernel.reject_bounds(self._d_q_pos[None])
-                          if rowcap and opts.rowcap_tile_reject
-                          and dev.type == "cuda" else None)
+        # the Q bounds of the capture's rejection: Q is fixed for the
+        # run, so they are computed once
+        self._q_bounds = capture_bounds(self._opts_eff(), engine,
+                                        self._d_q_pos[None])
         self._replicas = {}
         self._build_step()
         self._gen = torch.Generator(device=dev)
@@ -1350,8 +1365,10 @@ class Match4PCSBase:
                 arrs = [a.to(dev)[None] for a in (
                     self._d_p_pos, self._d_p_norm, self._d_p_rgb,
                     self._d_q_pos, self._d_q_norm, self._d_q_rgb)]
-                bounds = (None if self._q_bounds is None
-                          else rowcap_kernel.reject_bounds(arrs[3]))
+                bounds = capture_bounds(
+                    self._opts_eff(),
+                    resolve_pair_engine(self._opts_eff(), arrs[3].shape[1]),
+                    arrs[3])
                 rep = ((*arrs, bounds, lcp.VerifyIndex(arrs[0])),
                        None if self._band_index is None
                        else self._band_index.to(dev))

@@ -351,7 +351,7 @@ def extract_pairs_dense_rowcap(pos, normal, rgb, base_pos, base_norm,
 
 def _rowcap_layout_edges(pos, normal, rgb, base_pos, base_norm, base_rgb,
                          pair_distance_epsilon, cfg, row_cap, row_block,
-                         col_offset, edges):
+                         col_offset, edges, tile_reject, bounds):
     """The K2x captures (kernels/rowcap_layout.py) of ``edges``, for one
     base (clouds (n, 3), base (4, 3), an int or 0-d offset) or the trial
     axis; returns (per edge (cols, hit, rc) with a leading T, one base or
@@ -362,9 +362,12 @@ def _rowcap_layout_edges(pos, normal, rgb, base_pos, base_norm, base_rgb,
         pos, normal, rgb, base_pos, base_norm, base_rgb = (
             t[None] for t in (pos, normal, rgb, base_pos, base_norm,
                               base_rgb))
+        if bounds is not None:
+            bounds = type(bounds)(*(b[None] for b in bounds))
     return rowcap_layout(pos, normal, rgb, base_pos, base_norm, base_rgb,
                          pair_distance_epsilon, cfg, row_cap, row_block,
-                         col_offset, edges), single
+                         col_offset, edges, tile_reject=tile_reject,
+                         bounds=bounds), single
 
 
 def _layout_result(cols, hit, rc, row_cap: int, cols_only: bool):
@@ -390,7 +393,8 @@ def extract_pairs_rowcap_layout(pos, normal, rgb, base_pos, base_norm,
                                 cfg: PairFilterConfig, row_cap: int,
                                 row_block: int = 2048,
                                 recall_target: float = 0.9,
-                                col_offset=None):
+                                col_offset=None, tile_reject: bool = True,
+                                bounds=None):
     """Row-capped extraction of one base edge, without a global
     compaction (the JAX package's contract): each row keeps its first
     ``row_cap`` hits in the rotated column order ``col_offset,
@@ -407,11 +411,16 @@ def extract_pairs_rowcap_layout(pos, normal, rgb, base_pos, base_norm,
     Trial axis as :func:`extract_pairs`: bases (T, 4, 3) against the G
     clouds (G, n, 3), trial ``t`` on cloud ``t // (T // G)``, a (T,)
     ``col_offset``, outputs with a leading T.
+
+    ``tile_reject`` turns the kernel's rejection on, with ``bounds``
+    (``rowcap_layout.reject_bounds`` of ``pos``, computed once per run by
+    the matcher) computed on the call when not given; the output is the
+    same either way.
     """
     outs, single = _rowcap_layout_edges(
         pos, normal, rgb, base_pos, base_norm, base_rgb,
         pair_distance_epsilon, cfg, row_cap, row_block, col_offset,
-        ((edge0, edge1),))
+        ((edge0, edge1),), tile_reject, bounds)
     res = _layout_result(*outs[0], row_cap, cols_only=False)
     return tuple(o[0] for o in res) if single else res
 
@@ -423,18 +432,21 @@ def extract_pairs_rowcap_layout_both(pos, normal, rgb, base_pos,
                                      row_block: int = 2048,
                                      recall_target: float = 0.9,
                                      col_offset=None,
-                                     cols_only: bool = False):
+                                     cols_only: bool = False,
+                                     tile_reject: bool = True,
+                                     bounds=None):
     """Both base edges' row-capped extractions ((0, 1) and (2, 3)) in one
     K2x launch on the card, each equal to
     :func:`extract_pairs_rowcap_layout` of its edge. ``cols_only``:
     each table is the flat (n_pad * row_cap,) int32 cols (0 in empty
     slots; slot ``s`` is row ``s // row_cap``), the form the grid join
-    takes with ``row_cap``. Returns ((table, valid, count, dropped) of
-    edge (0, 1), the same of edge (2, 3))."""
+    takes with ``row_cap``. ``tile_reject`` and ``bounds`` as in
+    :func:`extract_pairs_rowcap_layout`. Returns ((table, valid, count,
+    dropped) of edge (0, 1), the same of edge (2, 3))."""
     outs, single = _rowcap_layout_edges(
         pos, normal, rgb, base_pos, base_norm, base_rgb,
         pair_distance_epsilon, cfg, row_cap, row_block, col_offset,
-        ((0, 1), (2, 3)))
+        ((0, 1), (2, 3)), tile_reject, bounds)
     res = [_layout_result(*o, row_cap, cols_only) for o in outs]
     if single:
         res = [tuple(x[0] for x in r) for r in res]

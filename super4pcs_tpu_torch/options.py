@@ -96,10 +96,12 @@ class Options:
     #: auto rowcap range ending at nq = 32768. Similarity mode's rowcap
     #: engine always takes the XLA route.
     rowcap_kernel: str = "auto"
-    #: Tile-pair band rejection inside the capture kernel (a
-    #: bounding-sphere test per 256-row x 512-column tile pair against
-    #: the distance band). The captured tables are identical either
-    #: way; it only skips work, on the card (the CPU path never skips).
+    #: Band rejection inside the capture kernels: K2's bounding-sphere
+    #: test per 256-row x 512-column tile pair, K2x's test of each
+    #: column against a warp's 32 rows (kernels/rowcap_layout.py),
+    #: both against the distance band. The captured tables are
+    #: identical either way; it only skips work, on the card (the CPU
+    #: path never skips).
     rowcap_tile_reject: bool = True
     #: Cosine tolerance of the Super4PCS pair-direction cone filter. The
     #: reference realizes this filter as a 7^3-bin direction-grid cone

@@ -70,8 +70,9 @@ from ..kernels import rowcap as rowcap_kernel
 from ..kernels import rowcap_layout as rowcap_layout_kernel
 from ..matcher import (Match4PCS, MatchSuper4PCS, RegistrationResult,
                        _K_DIAMETER_FRACTION, _K_MIN_TRIALS, _K_SMALL_ERROR,
-                       _step_seed, build_step, resolve_bases_per_step,
-                       resolve_pair_engine, uses_capture_kernel)
+                       _step_seed, build_step, capture_bounds,
+                       resolve_bases_per_step, resolve_pair_engine,
+                       uses_capture_kernel)
 from ..options import K_NUMBER_OF_DIAMETER_TRIALS, Options
 from ..ops import geometry, lcp, refine, sampling
 from ..ops.band_extract import build_batched_band_index
@@ -225,10 +226,8 @@ class BatchRun:
                                   self.band_index.to(d, slice(lo, hi)))[0]
             self.shards.append(_Shard(
                 i, lo, hi, d, step, arrays, _put(diams[lo:hi], d),
-                # the Q tile bounds of the capture's tile-pair rejection
-                (rowcap_kernel.reject_bounds(arrays[3])
-                 if rowcap and opts.rowcap_tile_reject
-                 and d.type == "cuda" else None),
+                # the Q bounds of the capture's rejection
+                capture_bounds(opts, self.engine, arrays[3]),
                 # the pairs' cell indexes of the verify, built once for
                 # the run
                 lcp.VerifyIndex(arrays[0])))

@@ -886,14 +886,18 @@ _LAYOUT_CFGS = {
                     max_translation_distance=1.5),
     "angle": dict(max_angle=80.0),
     "no-distance": dict(use_distance_filter=False),
+    "no-distance-angle": dict(use_distance_filter=False, max_angle=90.0),
 }
 
 
 def _layout_inputs(rng, g, n, nt):
-    """G bumpy clouds with normals (10 missing) and colors (20 missing),
-    T bases drawn from them (trial t on cloud t // (T // G)), per-trial
-    column offsets."""
+    """G kd-ordered bumpy clouds with normals (10 missing) and colors (20
+    missing), their last 8 points copies of their first (pairs at d2 =
+    0), T bases drawn from them (trial t on cloud t // (T // G)),
+    per-trial column offsets."""
     pos = np.stack([_bumpy(rng, n) for _ in range(g)])
+    pos = np.stack([p[sampling.kd_argsort(p)] for p in pos])
+    pos[:, n - 8:] = pos[:, :8]
     nrm = rng.normal(size=pos.shape).astype(np.float32)
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     nrm[:, :10] = 0
@@ -906,36 +910,127 @@ def _layout_inputs(rng, g, n, nt):
     return clouds, bases, rng.integers(0, n, nt)
 
 
-@pytest.mark.parametrize("cfg", list(_LAYOUT_CFGS))
-@pytest.mark.parametrize("n,row_cap", [(700, 24), (2500, 64)])
-def test_rowcap_layout_kernel_bit_identical_to_plain(dev, cfg, n, row_cap):
-    """K2x (both edges of T = 6 trials over G = 2 clouds in one launch)
-    against its plain version: cols, hit and rc bit for bit; with the
-    angle filter, outside the rows holding a pair within 1e-6 rad of
-    the gate (``acosf`` against ``torch.arccos``), which are counted."""
-    rng = np.random.default_rng(n + row_cap)
-    clouds, bases, off = _layout_inputs(rng, 2, n, 6)
-    args = [torch.as_tensor(a, device=dev) for a in (*clouds, *bases)]
-    tcfg = k2x.PairFilterConfig(**_LAYOUT_CFGS[cfg])
-    offs = torch.as_tensor(off, device=dev)
-    before = k2x.rowcap_layout.launches
-    got = k2x.rowcap_layout(*args, 0.1, tcfg, row_cap, col_offset=offs)
-    assert k2x.rowcap_layout.launches == before + 1
-    ref = k2x.rowcap_layout_plain(*args, 0.1, tcfg, row_cap,
-                                  col_offset=offs)
-    band, angle = k2x.gate_edge_rows(args[0], args[3], 0.1, tcfg)
-    torch.cuda.synchronize()
+def _layout_same(got, ref, angle=None):
+    """K2x's outputs against another run's, edge by edge: cols, hit and
+    rc bit for bit (outside ``angle``'s rows, (E, T, n_pad) bool, where
+    given); returns the hits."""
     hits = 0
     for e, ((c, h, rc), (c0, h0, rc0)) in enumerate(zip(got, ref)):
         hits += int(rc.sum())
-        same = (c == c0).all(-1) & (h == h0).all(-1) & (rc == rc0)
-        if cfg == "angle":
+        if angle is not None:
+            same = (c == c0).all(-1) & (h == h0).all(-1) & (rc == rc0)
             assert bool((same | angle[e]).all())
         else:
             assert torch.equal(c, c0) and torch.equal(h, h0)
             assert torch.equal(rc, rc0)
         assert torch.equal(h, c >= 0)
+    return hits
+
+
+@pytest.mark.parametrize("cfg", list(_LAYOUT_CFGS))
+@pytest.mark.parametrize("n,row_cap", [(700, 24), (2500, 64), (40, 7)])
+def test_rowcap_layout_kernel_bit_identical_to_plain(dev, cfg, n, row_cap):
+    """K2x (both edges of T = 6 trials over G = 2 kd-ordered clouds with
+    duplicate points, n not a multiple of the tile, in one launch; and
+    edge (2, 3) alone; row caps that are and are not multiples of 4)
+    against its plain version, with the rejection on
+    and off (bit for bit each other), at drawn offsets and at 0, n - 1
+    and a tile boundary: cols, hit and rc bit for bit; with the angle
+    filter, outside the rows holding a pair within 1e-6 rad of the gate
+    (``acosf`` against ``torch.arccos``), which are counted."""
+    rng = np.random.default_rng(n + row_cap)
+    clouds, bases, off = _layout_inputs(rng, 2, n, 6)
+    args = [torch.as_tensor(a, device=dev) for a in (*clouds, *bases)]
+    tcfg = k2x.PairFilterConfig(**_LAYOUT_CFGS[cfg])
+    bounds = k2x.reject_bounds(args[0])
+    band, angle = k2x.gate_edge_rows(args[0], args[3], 0.1, tcfg)
+    tile = (k2x.FILTER_TILE if cfg in ("filters", "angle",
+                                       "no-distance-angle") else k2x.TILE)
+    hits = 0
+    for offs in (off, np.zeros(6), np.full(6, n - 1),
+                 np.array([tile, tile - 1, tile + 1, 0, n - 1, tile])):
+        offs = torch.as_tensor(offs, device=dev).long()
+        ref = k2x.rowcap_layout_plain(*args, 0.1, tcfg, row_cap,
+                                      col_offset=offs)
+        runs = []
+        for reject in (True, False):
+            before = k2x.rowcap_layout.launches
+            runs.append(k2x.rowcap_layout(*args, 0.1, tcfg, row_cap,
+                                          col_offset=offs,
+                                          tile_reject=reject,
+                                          bounds=bounds if reject
+                                          else None))
+            assert k2x.rowcap_layout.launches == before + 1
+        torch.cuda.synchronize()
+        hits += _layout_same(runs[0], ref,
+                             angle if tcfg.max_angle > 0 else None)
+        _layout_same(runs[0], runs[1])
+        one = k2x.rowcap_layout(*args, 0.1, tcfg, row_cap, col_offset=offs,
+                                edges=((2, 3),), bounds=bounds)
+        torch.cuda.synchronize()
+        _layout_same(one, ref[1:], angle[1:] if tcfg.max_angle > 0
+                     else None)
     assert hits > 0
+
+
+def _lattice(n, g):
+    """G clouds of n points of the 1/8 lattice (every coordinate, |p|^2,
+    dot product and squared distance exact in float32), shuffled, their
+    last 16 points copies of their first."""
+    rng = np.random.default_rng(n)
+    grid = np.stack(np.meshgrid(*[np.arange(-8, 9)] * 3), -1).reshape(-1, 3)
+    pos = np.stack([grid[rng.choice(len(grid), n, replace=False)]
+                    for _ in range(g)]).astype(np.float32) / 8
+    pos[:, n - 16:] = pos[:, :16]
+    return pos
+
+
+@pytest.mark.parametrize("cfg", ["band", "angle"])
+def test_rowcap_layout_kernel_at_band_edges(dev, cfg):
+    """Lattice clouds whose pair distances fall exactly on both edges of
+    each band (d = 0.5 and 0.75 along x, eps = 0.125: lo^2 = 9/64, hi^2 =
+    25/64 and 49/64 are lattice squared distances; with the angle filter
+    |dist - d| = eps exactly), duplicate points, G = 2, a row cap above
+    most rows' hits: K2x with the rejection on and off equals the plain
+    version bit for bit."""
+    g, n, nt = 2, 1500, 4
+    pos = torch.as_tensor(_lattice(n, g), device=dev)
+    nrm = torch.zeros_like(pos)
+    rgb = torch.full_like(pos, -1.0)
+    bp = torch.zeros((nt, 4, 3), device=dev)
+    bp[:, 1, 0] = 0.5
+    bp[:, 3, 0] = 0.75
+    bases = (bp, torch.zeros_like(bp), torch.full_like(bp, -1.0))
+    tcfg = k2x.PairFilterConfig(**_LAYOUT_CFGS[cfg])
+    offs = torch.tensor([0, n - 1, 512, 700], device=dev)
+    ref = k2x.rowcap_layout_plain(pos, nrm, rgb, *bases, 0.125, tcfg, 200,
+                                  col_offset=offs)
+    _, angle = k2x.gate_edge_rows(pos, bp, 0.125, tcfg)
+    runs = [k2x.rowcap_layout(pos, nrm, rgb, *bases, 0.125, tcfg, 200,
+                              col_offset=offs, tile_reject=r)
+            for r in (True, False)]
+    torch.cuda.synchronize()
+    assert _layout_same(runs[0], ref,
+                        angle if cfg == "angle" else None) > 0
+    _layout_same(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("n,row_cap", [(700, 24), (300, 300)])
+def test_rowcap_layout_closed_form_on_the_card(dev, n, row_cap):
+    """No band and no filter (similarity mode's rowcap engine): the
+    kernel's closed form equals the plain version, one table for both
+    edges, at offsets 0, n - 1 and drawn, G = 2."""
+    rng = np.random.default_rng(n)
+    clouds, bases, off = _layout_inputs(rng, 2, n, 4)
+    args = [torch.as_tensor(a, device=dev) for a in (*clouds, *bases)]
+    cfg = k2x.PairFilterConfig(use_distance_filter=False)
+    offs = torch.as_tensor([0, n - 1, off[2], off[3]], device=dev)
+    got = k2x.rowcap_layout(*args, 0.1, cfg, row_cap, col_offset=offs)
+    ref = k2x.rowcap_layout_plain(*args, 0.1, cfg, row_cap,
+                                  col_offset=offs)
+    torch.cuda.synchronize()
+    assert got[0][0] is got[1][0]
+    assert _layout_same(got, ref) == 2 * 4 * n * (n - 1)
 
 
 def test_xla_route_registration_on_the_card(dev):
