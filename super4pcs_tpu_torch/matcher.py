@@ -97,7 +97,7 @@ from .ops.masking import masked_indices
 from .ops.pairs import (PairFilterConfig, extract_pairs,
                         extract_pairs_dense_rowcap,
                         extract_pairs_rowcap_layout_both)
-from .utils import Logger, LogLevel
+from .utils import Logger, LogLevel, profiling
 from .utils.graphs import HostCopies, StepGraph
 from .visitor import DummyTransformVisitor, visitor_needs_global
 
@@ -957,8 +957,22 @@ class Match4PCSBase:
         counter and best-so-far (ref:match4pcsBase.hpp:236-258,
         h:131-161). A resumed run never takes the hierarchical scale
         branch; a similarity state (linear part ``s R``) resumes as is.
+
+        ``stats["spans"]``: the registration's span table
+        (``utils/profiling.py``): the host seconds of its stages
+        ("setup" with "sample", "build", "warm" and "verify"; "search"
+        with "step", "refine" and "escalate"; the final "refine";
+        "finish"), the device seconds of its steps and refines on the
+        card, and the verify indexes it built (``index_builds``).
         """
         visitor = visitor or DummyTransformVisitor()
+        with profiling.call(self.device) as spans:
+            res = self._register(P, Q, visitor, resume_state)
+        res.stats["spans"] = spans
+        return res
+
+    def _register(self, P: PointCloud, Q: PointCloud, visitor,
+                  resume_state: Optional[dict]) -> RegistrationResult:
         if len(P) == 0 or len(Q) == 0:
             # degenerate inputs return kLargeNumber (ref:hpp:69-70)
             return RegistrationResult(
@@ -971,33 +985,35 @@ class Match4PCSBase:
             return self._compute_scale_hierarchical(P, Q, visitor)
 
         with torch.no_grad():
-            self._init(P, Q)
-            if resume_state is not None:
-                self._import_state(state_from_jax(resume_state))
+            with profiling.span("setup"):
+                self._init(P, Q)
+                if resume_state is not None:
+                    self._import_state(state_from_jax(resume_state))
             if self._best_lcp != 1.0:
-                self._perform_steps(visitor)
+                with profiling.span("search"):
+                    self._perform_steps(visitor)
             if self._refine_active() and self._best_lcp < 1.0:
-                tr0 = time.perf_counter()
                 self._maybe_refine()
-                self._stats["refine_seconds"] = time.perf_counter() - tr0
 
-        improved = self._best_lcp > self._initial_lcp
-        if improved:
-            global_mat = self._global_transform()
-            transformed_q = self._q_original.transformed(global_mat)
-            out_mat = global_mat
-        else:
-            transformed_q = self._q_original
-            out_mat = np.eye(4, dtype=np.float32)
+        with profiling.span("finish"):
+            profiling.count("index_builds", self._index_builds())
+            improved = self._best_lcp > self._initial_lcp
+            if improved:
+                global_mat = self._global_transform()
+                transformed_q = self._q_original.transformed(global_mat)
+                out_mat = global_mat
+            else:
+                transformed_q = self._q_original
+                out_mat = np.eye(4, dtype=np.float32)
 
-        return RegistrationResult(
-            score=float(self._best_lcp),
-            transform=np.asarray(out_mat, dtype=np.float32),
-            transformed_q=transformed_q,
-            n_trials=self._trial,
-            improved=improved,
-            stats=dict(self._stats),
-        )
+            return RegistrationResult(
+                score=float(self._best_lcp),
+                transform=np.asarray(out_mat, dtype=np.float32),
+                transformed_q=transformed_q,
+                n_trials=self._trial,
+                improved=improved,
+                stats=dict(self._stats),
+            )
 
     def _compute_scale_hierarchical(self, P: PointCloud, Q: PointCloud,
                                     visitor) -> RegistrationResult:
@@ -1023,17 +1039,17 @@ class Match4PCSBase:
         coarse_opts = opts.replace(
             sample_size=opts.scale_max_q,
             max_time_seconds=max(opts.max_time_seconds * 0.4, 1.0))
-        t0 = time.perf_counter()
 
         def coarse_visitor(fraction, lcp, transform):
             visitor(fraction if fraction < 0 else 0.5 * min(fraction, 1.0),
                     lcp, transform)
 
         coarse_visitor.needs_global_transformation = lambda: needs_global
-        coarse = type(self)(coarse_opts, self.logger, device=self.device,
-                            mesh=self._mesh) \
-            .compute_transformation(P, Q, visitor=coarse_visitor)
-        coarse_s = time.perf_counter() - t0
+        with profiling.span("coarse") as coarse_span:
+            coarse = type(self)(coarse_opts, self.logger,
+                                device=self.device, mesh=self._mesh) \
+                .compute_transformation(P, Q, visitor=coarse_visitor)
+        coarse_s = coarse_span.seconds
         if not coarse.improved:
             coarse.stats["scale_hierarchical"] = "coarse_failed"
             return coarse
@@ -1056,9 +1072,10 @@ class Match4PCSBase:
                     else 0.5 + 0.5 * min(fraction, 1.0), lcp, t)
 
         fine_visitor.needs_global_transformation = lambda: needs_global
-        fine = type(self)(fine_opts, self.logger, device=self.device,
-                          mesh=self._mesh) \
-            .compute_transformation(P, q2, visitor=fine_visitor)
+        with profiling.span("fine"):
+            fine = type(self)(fine_opts, self.logger, device=self.device,
+                              mesh=self._mesh) \
+                .compute_transformation(P, q2, visitor=fine_visitor)
 
         stats = dict(fine.stats)
         stats["hierarchical_scale"] = s
@@ -1091,93 +1108,98 @@ class Match4PCSBase:
 
     def _init(self, P: PointCloud, Q: PointCloud):
         opts = self.options
-        rng = np.random.default_rng(opts.random_seed)
-        self._q_original = Q
-        self._b_eff = opts.bases_per_step
+        # sampling, the kd order, centering, the diameter, the trial
+        # estimate and the upload
+        with profiling.span("sample"):
+            rng = np.random.default_rng(opts.random_seed)
+            self._q_original = Q
+            self._b_eff = opts.bases_per_step
 
-        if len(P) <= opts.sample_size:
-            self.logger.error(
-                "(P) More samples requested than available: use whole cloud")
-        sampled_p = sampling.sample_for_matching(
-            P, opts.delta, opts.sample_size, truncate=False, rng=rng)
-        if opts.p_sample_budget:
-            # pin the P shape (see Options.p_sample_budget)
-            n_p = len(sampled_p)
-            if n_p > opts.p_sample_budget:
-                keep = rng.permutation(n_p)[:opts.p_sample_budget]
+            if len(P) <= opts.sample_size:
+                self.logger.error("(P) More samples requested than "
+                                  "available: use whole cloud")
+            sampled_p = sampling.sample_for_matching(
+                P, opts.delta, opts.sample_size, truncate=False, rng=rng)
+            if opts.p_sample_budget:
+                # pin the P shape (see Options.p_sample_budget)
+                n_p = len(sampled_p)
+                if n_p > opts.p_sample_budget:
+                    keep = rng.permutation(n_p)[:opts.p_sample_budget]
+                else:
+                    keep = np.resize(np.arange(n_p), opts.p_sample_budget)
+                sampled_p = sampled_p.take(keep)
+            if len(Q) <= opts.sample_size:
+                self.logger.error("(Q) More samples requested than "
+                                  "available: use whole cloud")
+            q_target = opts.sample_size
+            scale_q_capped = 0
+            if opts.estimate_scale and q_target > opts.scale_max_q:
+                # similarity mode's pair space is nq^2: Q is cut to the
+                # ceiling (see Options.scale_max_q)
+                scale_q_capped = q_target - opts.scale_max_q
+                q_target = opts.scale_max_q
+                self.logger.error(
+                    "estimate_scale: Q sample capped to ", q_target,
+                    " (scale_max_q; see Options)")
+            sampled_q = sampling.sample_for_matching(
+                Q, opts.delta, q_target, truncate=True, rng=rng)
+            # spatially order the Q samples (kd median-split blocks): a
+            # fixed permutation is semantically transparent, and it makes
+            # the capture kernel's 256- and 512-point tiles compact, which
+            # its tile-pair rejection needs. Not in similarity mode, whose
+            # engines have no tile rejection: there the order would only
+            # reshuffle the trials (the JAX package's rule)
+            if not opts.estimate_scale:
+                sampled_q = sampled_q.take(
+                    sampling.kd_argsort(sampled_q.pos))
+            self._sampled_p_world = sampled_p
+            self._sampled_q_world = sampled_q
+
+            # center on centroids (ref:hpp:141-149)
+            self._centroid_p = sampled_p.pos.mean(axis=0)
+            self._centroid_q = sampled_q.pos.mean(axis=0)
+            p_pos = sampled_p.pos - self._centroid_p
+            q_pos = sampled_q.pos - self._centroid_q
+
+            # randomized diameter — drawn from the *Q* samples, as the
+            # reference does (ref:hpp:156-163)
+            self._p_diameter = geometry.estimate_diameter(
+                q_pos, K_NUMBER_OF_DIAMETER_TRIALS, rng)
+            self._max_base_diameter = self._p_diameter  # ref:hpp:172
+
+            # trial-count estimate (ref:hpp:175-185)
+            overlap = opts.overlap_estimation
+            denom = math.log(max(1.0 - overlap ** _K_MIN_TRIALS, 1e-300))
+            first_estimation = (math.log(_K_SMALL_ERROR) / denom
+                                if denom != 0.0 else 0.0)
+            if self._max_base_diameter > 0:
+                n_trials = int(first_estimation
+                               * (self._p_diameter / _K_DIAMETER_FRACTION)
+                               / self._max_base_diameter)
             else:
-                keep = np.resize(np.arange(n_p), opts.p_sample_budget)
-            sampled_p = sampled_p.take(keep)
-        if len(Q) <= opts.sample_size:
-            self.logger.error(
-                "(Q) More samples requested than available: use whole cloud")
-        q_target = opts.sample_size
-        scale_q_capped = 0
-        if opts.estimate_scale and q_target > opts.scale_max_q:
-            # similarity mode's pair space is nq^2: Q is cut to the
-            # ceiling (see Options.scale_max_q)
-            scale_q_capped = q_target - opts.scale_max_q
-            q_target = opts.scale_max_q
-            self.logger.error(
-                "estimate_scale: Q sample capped to ", q_target,
-                " (scale_max_q; see Options)")
-        sampled_q = sampling.sample_for_matching(
-            Q, opts.delta, q_target, truncate=True, rng=rng)
-        # spatially order the Q samples (kd median-split blocks): a
-        # fixed permutation is semantically transparent, and it makes
-        # the capture kernel's 256- and 512-point tiles compact, which
-        # its tile-pair rejection needs. Not in similarity mode, whose
-        # engines have no tile rejection: there the order would only
-        # reshuffle the trials (the JAX package's rule)
-        if not opts.estimate_scale:
-            sampled_q = sampled_q.take(sampling.kd_argsort(sampled_q.pos))
-        self._sampled_p_world = sampled_p
-        self._sampled_q_world = sampled_q
+                n_trials = 0
+            self.number_of_trials = max(n_trials, _K_MIN_TRIALS)
+            #: trial-budget multiplier — +1 per escalation
+            self._budget_mult = 1
+            #: escalation rungs climbed (Options.search_escalation_stages)
+            self._esc_stage = 0
+            #: live search factor (escalation raises it mid-run)
+            self._search_sf = opts.search_delta_factor
 
-        # center on centroids (ref:hpp:141-149)
-        self._centroid_p = sampled_p.pos.mean(axis=0)
-        self._centroid_q = sampled_q.pos.mean(axis=0)
-        p_pos = sampled_p.pos - self._centroid_p
-        q_pos = sampled_q.pos - self._centroid_q
+            self.logger.verbose("norm_max_dist: ", opts.delta)
 
-        # randomized diameter — drawn from the *Q* samples, as the
-        # reference does (ref:hpp:156-163)
-        self._p_diameter = geometry.estimate_diameter(
-            q_pos, K_NUMBER_OF_DIAMETER_TRIALS, rng)
-        self._max_base_diameter = self._p_diameter  # ref:hpp:172
+            dev = self.device
 
-        # trial-count estimate (ref:hpp:175-185)
-        overlap = opts.overlap_estimation
-        denom = math.log(max(1.0 - overlap ** _K_MIN_TRIALS, 1e-300))
-        first_estimation = (math.log(_K_SMALL_ERROR) / denom
-                            if denom != 0.0 else 0.0)
-        if self._max_base_diameter > 0:
-            n_trials = int(first_estimation
-                           * (self._p_diameter / _K_DIAMETER_FRACTION)
-                           / self._max_base_diameter)
-        else:
-            n_trials = 0
-        self.number_of_trials = max(n_trials, _K_MIN_TRIALS)
-        #: trial-budget multiplier — +1 per escalation
-        self._budget_mult = 1
-        #: escalation rungs climbed (see Options.search_escalation_stages)
-        self._esc_stage = 0
-        #: live search factor (escalation raises it mid-run)
-        self._search_sf = opts.search_delta_factor
+            def put(a):
+                return torch.as_tensor(np.asarray(a, np.float32),
+                                       device=dev)
 
-        self.logger.verbose("norm_max_dist: ", opts.delta)
-
-        dev = self.device
-
-        def put(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-        self._d_p_pos = put(p_pos)
-        self._d_p_norm = put(sampled_p.normals_or_zero())
-        self._d_p_rgb = put(sampled_p.rgb_or_invalid())
-        self._d_q_pos = put(q_pos)
-        self._d_q_norm = put(sampled_q.normals_or_zero())
-        self._d_q_rgb = put(sampled_q.rgb_or_invalid())
+            self._d_p_pos = put(p_pos)
+            self._d_p_norm = put(sampled_p.normals_or_zero())
+            self._d_p_rgb = put(sampled_p.rgb_or_invalid())
+            self._d_q_pos = put(q_pos)
+            self._d_q_norm = put(sampled_q.normals_or_zero())
+            self._d_q_rgb = put(sampled_q.rgb_or_invalid())
 
         self._trial = 0
         # *_overflow / *_dropped are exact dropped-ITEM counts across
@@ -1200,51 +1222,52 @@ class Match4PCSBase:
         self._base_ids = np.zeros(4, dtype=np.int64)
         self._congruent_ids = np.zeros(4, dtype=np.int64)
 
-        # P's cell indexes of the verify, built once per run and radius
-        self._p_index = lcp.VerifyIndex(self._d_p_pos)
-        engine = resolve_pair_engine(self._opts_eff(), len(sampled_q))
-        rowcap = uses_capture_kernel(self._opts_eff(), engine)
-        layout = engine == "rowcap" and not rowcap
-        # the banded engine's once-per-run sorted cell-pair table over the
-        # centered Q samples (ops/band_extract.py), built before the
-        # clock like the kernels
-        self._band_index = idx = None
-        if engine == "banded":
-            self._band_index = idx = build_band_index(
-                q_pos, opts.delta, cell_budget=opts.band_cell_budget,
-                device=dev)
-            self._stats.update(band_cells=idx.m, band_cell_size=float(idx.g),
-                               band_member_dropped=idx.member_dropped)
-        # the step, the run's state on every mesh device, the CUDA
-        # kernels of this engine, and one step and one refine whose
-        # outputs are thrown away, before any timed phase: the analog of
-        # the JAX package's off-clock compile (the CUDA libraries' first
-        # calls and the verify's cell indexes)
-        tc = time.perf_counter()
-        # the Q bounds of the capture's rejection: Q is fixed for the
-        # run, so they are computed once
-        self._q_bounds = capture_bounds(self._opts_eff(), engine,
-                                        self._d_q_pos[None])
-        self._replicas = {}
-        self._build_step()
-        self._gen = torch.Generator(device=dev)
-        if dev.type == "cuda":
-            lcp_kernel._lib()
-            if rowcap:
-                rowcap_kernel._lib()
-            if layout:
-                rowcap_layout_kernel._lib()
-            self._warm()
-        self._stats["compile_seconds"] = time.perf_counter() - tc + (
-            0.0 if idx is None else idx.host_seconds + idx.sort_seconds)
+        # the band index, the step, the run's state on every mesh device,
+        # the CUDA kernels of this engine, and one step and one refine
+        # whose outputs are thrown away, before any timed phase: the
+        # analog of the JAX package's off-clock compile (the CUDA
+        # libraries' first calls and the verify's cell indexes)
+        with profiling.span("build") as build:
+            # P's cell indexes of the verify, built once per run and
+            # radius
+            self._p_index = lcp.VerifyIndex(self._d_p_pos)
+            engine = resolve_pair_engine(self._opts_eff(), len(sampled_q))
+            rowcap = uses_capture_kernel(self._opts_eff(), engine)
+            layout = engine == "rowcap" and not rowcap
+            # the banded engine's once-per-run sorted cell-pair table over
+            # the centered Q samples (ops/band_extract.py)
+            self._band_index = idx = None
+            if engine == "banded":
+                self._band_index = idx = build_band_index(
+                    q_pos, opts.delta, cell_budget=opts.band_cell_budget,
+                    device=dev)
+                self._stats.update(band_cells=idx.m,
+                                   band_cell_size=float(idx.g),
+                                   band_member_dropped=idx.member_dropped)
+            # the Q bounds of the capture's rejection: Q is fixed for the
+            # run, so they are computed once
+            self._q_bounds = capture_bounds(self._opts_eff(), engine,
+                                            self._d_q_pos[None])
+            self._replicas = {}
+            self._build_step()
+            self._gen = torch.Generator(device=dev)
+        with profiling.span("warm") as warm:
+            if dev.type == "cuda":
+                lcp_kernel._lib()
+                if rowcap:
+                    rowcap_kernel._lib()
+                if layout:
+                    rowcap_layout_kernel._lib()
+                self._warm()
+        self._stats["compile_seconds"] = build.seconds + warm.seconds
 
         # initial verification of the identity transform (ref:hpp:201)
-        tv = time.perf_counter()
-        self._best_lcp = float(lcp.lcp_score_single(
-            torch.eye(4, dtype=torch.float32, device=dev), self._d_q_pos,
-            self._d_p_pos, opts.delta,
-            self._p_index.get(1, opts.delta)))
-        self._stats["initial_verify_seconds"] = time.perf_counter() - tv
+        with profiling.span("verify") as verify:
+            self._best_lcp = float(lcp.lcp_score_single(
+                torch.eye(4, dtype=torch.float32, device=dev),
+                self._d_q_pos, self._d_p_pos, opts.delta,
+                self._p_index.get(1, opts.delta)))
+        self._stats["initial_verify_seconds"] = verify.seconds
         self._initial_lcp = self._best_lcp
         self.logger.verbose("Initial LCP: ", self._best_lcp)
 
@@ -1277,8 +1300,9 @@ class Match4PCSBase:
         args = self._step_args()
         run = self._step_fn.run
         pool = torch.cuda.graph_pool_handle()
-        self._graph = StepGraph(lambda *draws: run(draws, diam, *args),
-                                self._draws(-1), device=dev, pool=pool)
+        with profiling.span("capture"):
+            self._graph = StepGraph(lambda *draws: run(draws, diam, *args),
+                                    self._draws(-1), device=dev, pool=pool)
         self._step_host = HostCopies(
             {k: v[0] for k, v in self._graph.outputs.items()}, dev)
         if self._multi_fn is not None:
@@ -1289,8 +1313,9 @@ class Match4PCSBase:
             self._stage_read = torch.cuda.Event()
             body, out, packed = (self._multi_fn, self._graph.outputs,
                                  self._packed)
-            self._body_graph = StepGraph(lambda: body(out, packed),
-                                         device=dev, pool=pool)
+            with profiling.span("capture"):
+                self._body_graph = StepGraph(lambda: body(out, packed),
+                                             device=dev, pool=pool)
             self._fused_host = HostCopies({"packed": packed}, dev)
 
     # ------------------------------------------------------------------
@@ -1401,26 +1426,36 @@ class Match4PCSBase:
         a mesh (its draws drawn once, on the mesh's first device, each
         device running its slice of the bases) and with ``eager`` the
         handle runs the step when it is fetched: no device runs ahead of
-        the host there, and a step abandoned unfetched costs nothing."""
-        draws = self._draws(step_idx)
+        the host there, and a step abandoned unfetched costs nothing.
+
+        Each step that runs is a span "step" (utils/profiling.py), a
+        device span but over a mesh."""
         if self._mesh is not None:
-            sharded = self._sharded
-            return lambda: sharded(tuple(d[0] for d in draws))
+            sharded, draws = self._sharded, self._draws(step_idx)
+
+            def run_sharded():
+                with profiling.span("step"):
+                    return sharded(tuple(d[0] for d in draws))
+            return run_sharded
         if self._graph is None or eager:
             step, args = self._step_fn, self._step_args()
+            draws = self._draws(step_idx)
 
             def run():
-                out = step.run(draws, self._max_base_diameter, *args)
-                if fused:
-                    self._multi_fn(out, self._packed)
-                    return {"packed": self._packed.cpu().numpy().copy()}
-                return {k: v[0].cpu().numpy() for k, v in out.items()}
+                with profiling.span("step", self.device):
+                    out = step.run(draws, self._max_base_diameter, *args)
+                    if fused:
+                        self._multi_fn(out, self._packed)
+                        return {"packed":
+                                self._packed.cpu().numpy().copy()}
+                    return {k: v[0].cpu().numpy() for k, v in out.items()}
             return run
-        out = self._graph(*draws)
-        if fused:
-            self._body_graph()
-            return self._fused_host.put({"packed": self._packed})
-        return self._step_host.put({k: v[0] for k, v in out.items()})
+        with profiling.span("step", self.device):
+            out = self._graph(*self._draws(step_idx))
+            if fused:
+                self._body_graph()
+                return self._fused_host.put({"packed": self._packed})
+            return self._step_host.put({k: v[0] for k, v in out.items()})
 
     @staticmethod
     def _fetch_step(handle) -> dict:
@@ -1448,7 +1483,8 @@ class Match4PCSBase:
         self._esc_enabled = (self._esc_next_factor() > self._search_sf
                              and self._refine_active())
         if opts.phase_timing:
-            self._measure_phases()
+            with profiling.span("phases"):
+                self._measure_phases()
 
         t0 = time.perf_counter()
         if self._multi_fn is not None:
@@ -1731,18 +1767,17 @@ class Match4PCSBase:
         self.logger.verbose("Trial estimate exhausted at LCP ",
                             self._best_lcp,
                             "; escalating search_delta_factor to ", esc)
-        t0 = time.perf_counter()
-        self._search_sf = esc
-        self._esc_stage += 1
-        self._esc_enabled = (self._esc_next_factor() > self._search_sf
-                             and self._refine_active())
-        self._build_step()
-        tw = time.perf_counter()
-        self._warm()
-        warm = time.perf_counter() - tw
-        self._budget_mult += 1
-        self._stats["escalation_compile_seconds"] = (
-            time.perf_counter() - t0)
+        with profiling.span("escalate") as span:
+            self._search_sf = esc
+            self._esc_stage += 1
+            self._esc_enabled = (self._esc_next_factor() > self._search_sf
+                                 and self._refine_active())
+            self._build_step()
+            tw = time.perf_counter()
+            self._warm()
+            warm = time.perf_counter() - tw
+            self._budget_mult += 1
+        self._stats["escalation_compile_seconds"] = span.seconds
         self._stats["escalated_to"] = esc
         return warm
 
@@ -1804,19 +1839,21 @@ class Match4PCSBase:
 
     def _refine(self, cur: np.ndarray):
         """Trimmed-ICP refine of ``cur`` at the live search factor, and
-        the exact LCP of both. Returns (refined (4, 4), scores (2,))."""
+        the exact LCP of both, in a device span "refine". Returns
+        (refined (4, 4), scores (2,))."""
         dev = self.device
-        cur_t = torch.as_tensor(np.asarray(cur, np.float32), device=dev)
-        refined = refine.refine_transform(
-            cur_t, self._d_q_pos, self._d_p_pos, self.options.delta,
-            iters=self.options.refine_iterations,
-            start_factor=self._search_sf,
-            estimate_scale=self.options.estimate_scale)
-        scores = lcp.lcp_scores(torch.stack([cur_t, refined]),
-                                self._d_q_pos, self._d_p_pos,
-                                self.options.delta,
-                                self._p_index.get(1, self.options.delta))
-        return refined.cpu().numpy(), scores.cpu().numpy()
+        with profiling.span("refine", dev):
+            cur_t = torch.as_tensor(np.asarray(cur, np.float32), device=dev)
+            refined = refine.refine_transform(
+                cur_t, self._d_q_pos, self._d_p_pos, self.options.delta,
+                iters=self.options.refine_iterations,
+                start_factor=self._search_sf,
+                estimate_scale=self.options.estimate_scale)
+            scores = lcp.lcp_scores(
+                torch.stack([cur_t, refined]), self._d_q_pos,
+                self._d_p_pos, self.options.delta,
+                self._p_index.get(1, self.options.delta))
+            return refined.cpu().numpy(), scores.cpu().numpy()
 
     def _refine_active(self) -> bool:
         return self.options.refine_iterations > 0
@@ -1848,6 +1885,12 @@ class Match4PCSBase:
             self._transform = refined
             self._qcentroid1 = refined[:3, 3].copy()
             self._qcentroid2 = np.zeros(3, np.float32)
+
+    def _index_builds(self) -> int:
+        """The verify indexes this run built, on every mesh device."""
+        indexes = {self._p_index}
+        indexes.update(args[-1] for args, _ in self._replicas.values())
+        return sum(ix.builds for ix in indexes)
 
     def _global_transform(self) -> np.ndarray:
         """Recompose the centered-frame best transform into original
@@ -1895,9 +1938,9 @@ class Match4PCSBase:
             # off the clock)
             self._search_sf = sf
             self._build_step()
-            tw = time.perf_counter()
-            self._warm()
-            self._stats["compile_seconds"] += time.perf_counter() - tw
+            with profiling.span("warm") as warm:
+                self._warm()
+            self._stats["compile_seconds"] += warm.seconds
         self._initial_lcp = float(state.get("initial_lcp",
                                             self._initial_lcp))
         self._transform = state["transform"]

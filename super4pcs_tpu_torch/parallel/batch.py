@@ -76,6 +76,7 @@ from ..matcher import (Match4PCS, MatchSuper4PCS, RegistrationResult,
 from ..options import K_NUMBER_OF_DIAMETER_TRIALS, Options
 from ..ops import geometry, lcp, refine, sampling
 from ..ops.band_extract import build_batched_band_index
+from ..utils import profiling
 from ..visitor import DummyTransformVisitor, visitor_needs_global
 from .sharded import Mesh, run_shards
 
@@ -162,91 +163,104 @@ class BatchRun:
         self.mesh = mesh or Mesh(devices=(dev,), axis="pairs")
         cone_tol = (opts.cone_cos_tolerance if algorithm == "super4pcs"
                     else -1.0)
-        rng = np.random.default_rng(opts.random_seed)
-        preps = [(_prep(p, opts, False, rng), _prep(q, opts, True, rng))
-                 for p, q in pairs]
-        np_max = self.np_max = max(len(pp) for (pp, _), _ in preps)
-        self.nq_max = max(len(qq) for _, (qq, _) in preps)
-        self.nq_real = np.asarray([len(qq) for _, (qq, _) in preps])
-        if opts.bases_per_step is None:
-            opts = self.opts = opts.replace(
-                bases_per_step=resolve_bases_per_step(opts, self.nq_max))
-        self.engine = resolve_pair_engine(opts, self.nq_max)
-        p_pos = np.stack([_repeat_pad(pp.pos - cp, np_max)
-                          for (pp, cp), _ in preps])
-        p_norm = np.stack([_repeat_pad(pp.normals_or_zero(), np_max)
-                           for (pp, _), _ in preps])
-        p_rgb = np.stack([_repeat_pad(pp.rgb_or_invalid(), np_max)
-                          for (pp, _), _ in preps])
-        q_pos = np.stack([_sentinel_pad(qq.pos - cq, self.nq_max)
-                          for _, (qq, cq) in preps])
-        q_norm = np.stack([_zero_pad(qq.normals_or_zero(), self.nq_max,
-                                     0.0) for _, (qq, _) in preps])
-        q_rgb = np.stack([_zero_pad(qq.rgb_or_invalid(), self.nq_max,
-                                    -1.0) for _, (qq, _) in preps])
-        self.cent_p = np.stack([cp for (_, cp), _ in preps])
-        self.cent_q = np.stack([cq for _, (_, cq) in preps])
-        # diameter from the *unpadded* samples (sentinel rows would blow
-        # the estimate up by ~Q_PAD/extent)
-        diams = np.asarray([
-            geometry.estimate_diameter(
-                preps[i][1][0].pos - self.cent_q[i],
-                K_NUMBER_OF_DIAMETER_TRIALS, rng)
-            for i in range(g)], np.float32)
+        # sampling, the kd order, centering, padding, the diameters and
+        # the trial estimate
+        with profiling.span("sample"):
+            rng = np.random.default_rng(opts.random_seed)
+            preps = [(_prep(p, opts, False, rng), _prep(q, opts, True, rng))
+                     for p, q in pairs]
+            np_max = self.np_max = max(len(pp) for (pp, _), _ in preps)
+            self.nq_max = max(len(qq) for _, (qq, _) in preps)
+            self.nq_real = np.asarray([len(qq) for _, (qq, _) in preps])
+            if opts.bases_per_step is None:
+                opts = self.opts = opts.replace(
+                    bases_per_step=resolve_bases_per_step(opts,
+                                                          self.nq_max))
+            self.engine = resolve_pair_engine(opts, self.nq_max)
+            p_pos = np.stack([_repeat_pad(pp.pos - cp, np_max)
+                              for (pp, cp), _ in preps])
+            p_norm = np.stack([_repeat_pad(pp.normals_or_zero(), np_max)
+                               for (pp, _), _ in preps])
+            p_rgb = np.stack([_repeat_pad(pp.rgb_or_invalid(), np_max)
+                              for (pp, _), _ in preps])
+            q_pos = np.stack([_sentinel_pad(qq.pos - cq, self.nq_max)
+                              for _, (qq, cq) in preps])
+            q_norm = np.stack([_zero_pad(qq.normals_or_zero(), self.nq_max,
+                                         0.0) for _, (qq, _) in preps])
+            q_rgb = np.stack([_zero_pad(qq.rgb_or_invalid(), self.nq_max,
+                                        -1.0) for _, (qq, _) in preps])
+            self.cent_p = np.stack([cp for (_, cp), _ in preps])
+            self.cent_q = np.stack([cq for _, (_, cq) in preps])
+            # diameter from the *unpadded* samples (sentinel rows would
+            # blow the estimate up by ~Q_PAD/extent)
+            diams = np.asarray([
+                geometry.estimate_diameter(
+                    preps[i][1][0].pos - self.cent_q[i],
+                    K_NUMBER_OF_DIAMETER_TRIALS, rng)
+                for i in range(g)], np.float32)
 
-        # trial estimate from the worst pair (ref:hpp:175-185 semantics)
-        overlap = opts.overlap_estimation
-        denom = math.log(max(1.0 - overlap ** _K_MIN_TRIALS, 1e-300))
-        first_estimation = (math.log(_K_SMALL_ERROR) / denom
-                            if denom else 0.0)
-        self.n_trials = max(int(first_estimation / _K_DIAMETER_FRACTION),
-                            _K_MIN_TRIALS)
+            # trial estimate from the worst pair (ref:hpp:175-185
+            # semantics)
+            overlap = opts.overlap_estimation
+            denom = math.log(max(1.0 - overlap ** _K_MIN_TRIALS, 1e-300))
+            first_estimation = (math.log(_K_SMALL_ERROR) / denom
+                                if denom else 0.0)
+            self.n_trials = max(
+                int(first_estimation / _K_DIAMETER_FRACTION), _K_MIN_TRIALS)
 
-        tc = time.perf_counter()
-        # the banded engine's per-pair indexes, one stacked index of
-        # every pair (a shard reads its pairs' part); the step is sized
-        # by the whole index, so every shard's step is sized alike
-        self.band_index = (build_batched_band_index(
-            list(q_pos), opts.delta, cell_budget=opts.band_cell_budget,
-            device=dev) if self.engine == "banded" else None)
-        self.step, (_, self.k_quads, _) = build_step(
-            opts, self.nq_max, cone_tol, self.band_index)
-        # the capture kernel K2 (its tile bounds), or on the XLA route K2x
-        rowcap = uses_capture_kernel(opts, self.engine)
-        layout = self.engine == "rowcap" and not rowcap
-        self.shards = []
-        for i in self.mesh.local_shards():
-            d = self.mesh.devices[i]
-            lo, hi = self.mesh.bounds(g, i)
-            arrays = tuple(_put(a[lo:hi], d) for a in (
-                p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb))
-            step = self.step
-            if self.band_index is not None and (lo, hi, d) != (0, g, dev):
-                step = build_step(opts, self.nq_max, cone_tol,
-                                  self.band_index.to(d, slice(lo, hi)))[0]
-            self.shards.append(_Shard(
-                i, lo, hi, d, step, arrays, _put(diams[lo:hi], d),
-                # the Q bounds of the capture's rejection
-                capture_bounds(opts, self.engine, arrays[3]),
-                # the pairs' cell indexes of the verify, built once for
-                # the run
-                lcp.VerifyIndex(arrays[0])))
-        self.gen = torch.Generator(device=dev)
-        if dev.type == "cuda":
-            # the kernels' builds, and one step and one refine whose
-            # outputs are thrown away, on every device, before the clock
-            # (see the module docstring)
-            lcp_kernel._lib()
-            if rowcap:
-                rowcap_kernel._lib()
-            if layout:
-                rowcap_layout_kernel._lib()
-            self.run_step(-1)
-            if opts.refine_iterations > 0:
-                self.refine_pairs(np.tile(np.eye(4, dtype=np.float32),
-                                          (g, 1, 1)))
-            for sh in self.shards:
-                torch.cuda.synchronize(sh.dev)
+        with profiling.span("build") as build:
+            # the banded engine's per-pair indexes, one stacked index of
+            # every pair (a shard reads its pairs' part); the step is
+            # sized by the whole index, so every shard's step is sized
+            # alike
+            self.band_index = (build_batched_band_index(
+                list(q_pos), opts.delta, cell_budget=opts.band_cell_budget,
+                device=dev) if self.engine == "banded" else None)
+            self.step, (_, self.k_quads, _) = build_step(
+                opts, self.nq_max, cone_tol, self.band_index)
+            # the capture kernel K2 (its tile bounds), or on the XLA route
+            # K2x
+            rowcap = uses_capture_kernel(opts, self.engine)
+            layout = self.engine == "rowcap" and not rowcap
+            self.shards = []
+            for i in self.mesh.local_shards():
+                d = self.mesh.devices[i]
+                lo, hi = self.mesh.bounds(g, i)
+                arrays = tuple(_put(a[lo:hi], d) for a in (
+                    p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb))
+                step = self.step
+                if (self.band_index is not None
+                        and (lo, hi, d) != (0, g, dev)):
+                    step = build_step(
+                        opts, self.nq_max, cone_tol,
+                        self.band_index.to(d, slice(lo, hi)))[0]
+                self.shards.append(_Shard(
+                    i, lo, hi, d, step, arrays, _put(diams[lo:hi], d),
+                    # the Q bounds of the capture's rejection
+                    capture_bounds(opts, self.engine, arrays[3]),
+                    # the pairs' cell indexes of the verify, built once
+                    # for the run
+                    lcp.VerifyIndex(arrays[0])))
+            self.gen = torch.Generator(device=dev)
+            #: the device of the step's and refines' device spans (none
+            #: over a mesh of several devices)
+            self.span_device = dev if self.mesh.size == 1 else None
+        with profiling.span("warm") as warm:
+            if dev.type == "cuda":
+                # the kernels' builds, and one step and one refine whose
+                # outputs are thrown away, on every device, before the
+                # clock (see the module docstring)
+                lcp_kernel._lib()
+                if rowcap:
+                    rowcap_kernel._lib()
+                if layout:
+                    rowcap_layout_kernel._lib()
+                self.run_step(-1)
+                if opts.refine_iterations > 0:
+                    self.refine_pairs(np.tile(np.eye(4, dtype=np.float32),
+                                              (g, 1, 1)))
+                for sh in self.shards:
+                    torch.cuda.synchronize(sh.dev)
 
         # initial LCP of the identity per pair (ref:hpp:201); the masked
         # denominator makes sentinel padding exact here and below
@@ -257,8 +271,9 @@ class BatchRun:
                 sh.arrays[0], opts.delta,
                 sh.p_index.get(1, opts.delta))[:, 0])
 
-        self.init_scores = self._on_shards(init)["s"]
-        self.compile_seconds = time.perf_counter() - tc
+        with profiling.span("verify") as verify:
+            self.init_scores = self._on_shards(init)["s"]
+        self.compile_seconds = build.seconds + warm.seconds + verify.seconds
 
     @property
     def index_builds(self) -> int:
@@ -276,25 +291,25 @@ class BatchRun:
 
     def run_step(self, step_idx: int) -> dict:
         """Step ``step_idx`` of every pair, its outputs fetched to the
-        host. Its draws are seeded from the run seed and the index and
-        drawn for all G pairs, pair by pair, on this process's first
-        device; each shard runs its pairs' slice."""
-        self.gen.manual_seed(_step_seed(self.opts.random_seed, step_idx))
-        draws = self.step.draw(self.gen, self.g, self.np_max)
-
+        host, in a span "step". Its draws are seeded from the run seed
+        and the index and drawn for all G pairs, pair by pair, on this
+        process's first device; each shard runs its pairs' slice."""
         def one(sh):
             return sh.step.run(
                 tuple(t[sh.lo:sh.hi].to(sh.dev) for t in draws), sh.diam,
                 *sh.arrays, sh.q_bounds, sh.p_index)
 
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("step", self.span_device):
+            self.gen.manual_seed(_step_seed(self.opts.random_seed,
+                                            step_idx))
+            draws = self.step.draw(self.gen, self.g, self.np_max)
             return self._on_shards(one)
 
     def refine_pairs(self, src: np.ndarray):
         """The guarded refine of every pair's ``src`` (G, 4, 4): (the
         refined (G, 4, 4), the exact LCP of both (G, 2)), on each shard
         the refines one pair at a time and the scores in one verify
-        launch."""
+        launch; a span "refine"."""
         opts = self.opts
 
         def one(sh):
@@ -311,7 +326,7 @@ class BatchRun:
                                     sh.p_index.get(1, opts.delta))
             return dict(refined=refined, scores=scores)
 
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("refine", self.span_device):
             out = self._on_shards(one)
         return out["refined"], out["scores"]
 
@@ -364,13 +379,31 @@ def register_batch(
     an identical replica, so any may write it; a fresh run passing it as
     ``resume_state`` continues where the dead one stopped, sharded or
     not).
+
+    Every result's ``stats["spans"]`` is the call's one span table
+    (``utils/profiling.py``): "setup" (``BatchRun``), "search" (its
+    steps), "refine", "redeem" (each straggler's registration a "call"
+    under it) and "finish".
     """
+    if len(pairs) == 0:
+        return []
+    with profiling.call(device if mesh is None
+                        else mesh.devices[mesh.local_shards()[0]],
+                        len(pairs)) as spans:
+        results = _register_batch(pairs, options, mesh, algorithm, visitor,
+                                  resume_state, on_checkpoint, device)
+    for r in results:
+        r.stats["spans"] = spans
+    return results
+
+
+def _register_batch(pairs, options, mesh, algorithm, visitor, resume_state,
+                    on_checkpoint, device) -> List[RegistrationResult]:
     visitor = visitor or DummyTransformVisitor()
     needs_global = visitor_needs_global(visitor)
     g = len(pairs)
-    if g == 0:
-        return []
-    run = BatchRun(pairs, options, algorithm, device, mesh)
+    with profiling.span("setup"):
+        run = BatchRun(pairs, options, algorithm, device, mesh)
     dev = run.dev
     n_procs = run.mesh.world_size
     opts = run.opts
@@ -438,60 +471,64 @@ def register_batch(
             **{k: v.tolist() for k, v in best.items()},
         }
 
-    visit(0.0)
-    t0 = time.perf_counter()
     with torch.no_grad():
-        while True:
-            out = run.run_step(step_idx)
-            lcps = out["lcp"]
-            upd = lcps > best["lcp"]
-            improved |= upd
-            for name in ("lcp", "transform", "qcentroid1", "qcentroid2"):
-                best[name][upd] = out[name][upd]
+        with profiling.span("search"):
+            visit(0.0)
+            t0 = time.perf_counter()
+            while True:
+                out = run.run_step(step_idx)
+                lcps = out["lcp"]
+                upd = lcps > best["lcp"]
+                improved |= upd
+                for name in ("lcp", "transform", "qcentroid1",
+                             "qcentroid2"):
+                    best[name][upd] = out[name][upd]
 
-            # same dropped-ITEM accounting as the single-pair matcher,
-            # kept per pair. pair_counts: (G, B, 6) = (c1, c2, qcount,
-            # cell_dropped, pairs_dropped, q_sampled_out)
-            counts = out["pair_counts"]
-            counters["n_congruent"] += out["n_congruent"]
-            counters["pairs_overflow"] += counts[:, :, 4].sum(axis=1)
-            counters["quads_overflow"] += np.maximum(
-                counts[:, :, 2] - k_quads, 0).sum(axis=1)
-            counters["cell_dropped"] += counts[:, :, 3].sum(axis=1)
-            counters["q_sampled_out"] += counts[:, :, 5].sum(axis=1)
-            counters["cands_overflow"] += out["cands_dropped"]
+                # same dropped-ITEM accounting as the single-pair
+                # matcher, kept per pair. pair_counts: (G, B, 6) = (c1,
+                # c2, qcount, cell_dropped, pairs_dropped, q_sampled_out)
+                counts = out["pair_counts"]
+                counters["n_congruent"] += out["n_congruent"]
+                counters["pairs_overflow"] += counts[:, :, 4].sum(axis=1)
+                counters["quads_overflow"] += np.maximum(
+                    counts[:, :, 2] - k_quads, 0).sum(axis=1)
+                counters["cell_dropped"] += counts[:, :, 3].sum(axis=1)
+                counters["q_sampled_out"] += counts[:, :, 5].sum(axis=1)
+                counters["cands_overflow"] += out["cands_dropped"]
 
-            if rank_best is not None:
-                ranks = out["rank_lcp"]
-                rupd = (ranks > rank_best["rank"]) & (ranks >= 0)
-                rank_best["rank"][rupd] = ranks[rupd]
-                rank_best["transform"][rupd] = out["transform"][rupd]
+                if rank_best is not None:
+                    ranks = out["rank_lcp"]
+                    rupd = (ranks > rank_best["rank"]) & (ranks >= 0)
+                    rank_best["rank"][rupd] = ranks[rupd]
+                    rank_best["transform"][rupd] = out["transform"][rupd]
 
-            trial += opts.bases_per_step
-            step_idx += 1
-            if on_checkpoint is not None:
-                on_checkpoint(snapshot_state())
-            if upd.any():
-                visit(-1.0)
-            elapsed = time.perf_counter() - t0
-            if n_procs > 1:
-                # the anytime stop rule must be the same in every
-                # process (one that stops while another launches the
-                # next step's collective hangs the job): process 0's
-                # clock decides
-                import torch.distributed as dist
-                clock = torch.tensor([elapsed], dtype=torch.float64)
-                dist.broadcast(clock, 0, group=run.mesh.group)
-                elapsed = float(clock[0])
-            fraction_time = elapsed / opts.max_time_seconds
-            fraction = (fraction_time if opts.use_full_time_budget
-                        else max(trial / n_trials, fraction_time))
-            visit(min(fraction, 1.0))
-            if (fraction >= 0.99
-                    or (trial > n_trials and not opts.use_full_time_budget)
-                    or (best["lcp"] >= opts.terminate_threshold).all()):
-                break
-        search_seconds = time.perf_counter() - t0
+                trial += opts.bases_per_step
+                step_idx += 1
+                if on_checkpoint is not None:
+                    on_checkpoint(snapshot_state())
+                if upd.any():
+                    visit(-1.0)
+                elapsed = time.perf_counter() - t0
+                if n_procs > 1:
+                    # the anytime stop rule must be the same in every
+                    # process (one that stops while another launches
+                    # the next step's collective hangs the job): process
+                    # 0's clock decides
+                    import torch.distributed as dist
+                    clock = torch.tensor([elapsed], dtype=torch.float64)
+                    dist.broadcast(clock, 0, group=run.mesh.group)
+                    elapsed = float(clock[0])
+                fraction_time = elapsed / opts.max_time_seconds
+                fraction = (fraction_time if opts.use_full_time_budget
+                            else max(trial / n_trials, fraction_time))
+                visit(min(fraction, 1.0))
+                if (fraction >= 0.99
+                        or (trial > n_trials
+                            and not opts.use_full_time_budget)
+                        or (best["lcp"]
+                            >= opts.terminate_threshold).all()):
+                    break
+            search_seconds = time.perf_counter() - t0
 
         # guarded trimmed-ICP polish of every pair (same contract as the
         # single-pair matcher: kept only if LCP improves). In
@@ -524,65 +561,73 @@ def register_batch(
             (i for i in range(g)
              if best["lcp"][i] < opts.terminate_threshold),
             key=lambda i: best["lcp"][i])
-        for i in order:
-            remaining = opts.max_time_seconds - (time.perf_counter() - t0)
-            if remaining < max(0.1 * opts.max_time_seconds, 15.0):
-                break
-            # full-time-budget: the pair already failed one trial
-            # estimate in the batch — the redemption pass should use
-            # the wall budget, not fail the same estimate again
-            sub = opts.replace(
-                search_delta_factor=opts.search_escalation_factor,
-                max_time_seconds=int(remaining),
-                use_full_time_budget=True,
-                bases_per_step=None)
-            r = cls(sub, device=dev).compute_transformation(pairs[i][0],
-                                                            pairs[i][1])
-            if r.score > best["lcp"][i] and r.improved:
-                # kept OUTSIDE the resumable batch_state: the redeemed
-                # transform lives in original coordinates (the batch
-                # state tracks centered-frame poses); a resumed run
-                # simply redeems again
-                r.stats["straggler_escalated_to"] = \
-                    opts.search_escalation_factor
-                redeemed[i] = r
+        if order:
+            with profiling.span("redeem"):
+                for i in order:
+                    remaining = (opts.max_time_seconds
+                                 - (time.perf_counter() - t0))
+                    if remaining < max(0.1 * opts.max_time_seconds, 15.0):
+                        break
+                    # full-time-budget: the pair already failed one
+                    # trial estimate in the batch — the redemption pass
+                    # should use the wall budget, not fail the same
+                    # estimate again
+                    sub = opts.replace(
+                        search_delta_factor=opts.search_escalation_factor,
+                        max_time_seconds=int(remaining),
+                        use_full_time_budget=True,
+                        bases_per_step=None)
+                    r = cls(sub, device=dev).compute_transformation(
+                        pairs[i][0], pairs[i][1])
+                    if r.score > best["lcp"][i] and r.improved:
+                        # kept OUTSIDE the resumable batch_state: the
+                        # redeemed transform lives in original coordinates
+                        # (the batch state tracks centered-frame poses); a
+                        # resumed run simply redeems again
+                        r.stats["straggler_escalated_to"] = \
+                            opts.search_escalation_factor
+                        redeemed[i] = r
 
-    batch_state = snapshot_state()
-    results = []
-    for i in range(g):
-        if i in redeemed:
-            r = redeemed[i]
+    with profiling.span("finish"):
+        profiling.count("index_builds", run.index_builds)
+        batch_state = snapshot_state()
+        results = []
+        for i in range(g):
+            if i in redeemed:
+                r = redeemed[i]
+                stats = {name: int(counters[name][i])
+                         for name in counters}
+                stats.update(r.stats, compile_seconds=compile_seconds,
+                             q_padded=int(nq_max - nq_real[i]),
+                             batch_state=batch_state)
+                results.append(RegistrationResult(
+                    score=r.score, transform=r.transform,
+                    transformed_q=r.transformed_q,
+                    n_trials=trial + r.n_trials,
+                    improved=True, stats=stats))
+                continue
+            if improved[i]:
+                mat = np.array(best["transform"][i])
+                rot = mat[:3, :3]
+                mat[:3, 3] = (best["qcentroid1"][i] + cent_p[i]
+                              - rot @ (best["qcentroid2"][i] + cent_q[i]))
+                moved = pairs[i][1].transformed(mat)
+            else:
+                mat = np.eye(4, dtype=np.float32)
+                moved = pairs[i][1]
             stats = {name: int(counters[name][i]) for name in counters}
-            stats.update(r.stats, compile_seconds=compile_seconds,
-                         q_padded=int(nq_max - nq_real[i]),
-                         batch_state=batch_state)
+            stats.update(
+                compile_seconds=compile_seconds,
+                search_seconds=search_seconds,
+                q_padded=int(nq_max - nq_real[i]),
+                batch_state=batch_state,
+            )
+            if run.band_index is not None:
+                stats.update(
+                    band_cells=run.band_index.m,
+                    band_member_dropped=run.band_index.member_dropped)
             results.append(RegistrationResult(
-                score=r.score, transform=r.transform,
-                transformed_q=r.transformed_q,
-                n_trials=trial + r.n_trials,
-                improved=True, stats=stats))
-            continue
-        if improved[i]:
-            mat = np.array(best["transform"][i])
-            rot = mat[:3, :3]
-            mat[:3, 3] = (best["qcentroid1"][i] + cent_p[i]
-                          - rot @ (best["qcentroid2"][i] + cent_q[i]))
-            moved = pairs[i][1].transformed(mat)
-        else:
-            mat = np.eye(4, dtype=np.float32)
-            moved = pairs[i][1]
-        stats = {name: int(counters[name][i]) for name in counters}
-        stats.update(
-            compile_seconds=compile_seconds,
-            search_seconds=search_seconds,
-            q_padded=int(nq_max - nq_real[i]),
-            batch_state=batch_state,
-        )
-        if run.band_index is not None:
-            stats.update(band_cells=run.band_index.m,
-                         band_member_dropped=run.band_index.member_dropped)
-        results.append(RegistrationResult(
-            score=float(best["lcp"][i]), transform=mat,
-            transformed_q=moved, n_trials=trial,
-            improved=bool(improved[i]), stats=stats))
-    return results
+                score=float(best["lcp"][i]), transform=mat,
+                transformed_q=moved, n_trials=trial,
+                improved=bool(improved[i]), stats=stats))
+        return results

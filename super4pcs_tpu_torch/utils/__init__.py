@@ -1,5 +1,5 @@
 from .logger import Logger, LogLevel
-from .timer import Timer, PhaseTimers
+from .timer import PhaseTimers
 from . import profiling
 
-__all__ = ["Logger", "LogLevel", "Timer", "PhaseTimers", "profiling"]
+__all__ = ["Logger", "LogLevel", "PhaseTimers", "profiling"]

@@ -1,40 +1,12 @@
-"""Wall-clock stopwatch (ref:src/super4pcs/utils/timer.h:56-80).
+"""Named phase timers (ref:src/super4pcs/utils/timer.h:56-80).
 
-A copy of ``super4pcs_tpu.utils.timer``. The analog of the reference's
-TEST_GLOBAL_TIMINGS phase breakdown (totalTime / verifyTime /
-kdTreeTime, ref:match4pcsBase.h:176-184) is accumulating perf_counter
-spans around device work that ends in a synchronize.
+The analog of the reference's TEST_GLOBAL_TIMINGS phase breakdown
+(totalTime / verifyTime / kdTreeTime, ref:match4pcsBase.h:176-184):
+the step's phases (``Options.phase_timing``) add up here; a
+registration's own stages are its span table (``utils/profiling.py``).
 """
 
 from __future__ import annotations
-
-import time
-
-
-class Timer:
-    def __init__(self, run: bool = True):
-        self._start = time.perf_counter() if run else None
-        self._acc = 0.0
-
-    def start(self):
-        if self._start is None:
-            self._start = time.perf_counter()
-
-    def stop(self):
-        if self._start is not None:
-            self._acc += time.perf_counter() - self._start
-            self._start = None
-
-    def elapsed(self) -> float:
-        """Elapsed seconds (accumulated + running span)."""
-        acc = self._acc
-        if self._start is not None:
-            acc += time.perf_counter() - self._start
-        return acc
-
-    def reset(self, run: bool = True):
-        self._acc = 0.0
-        self._start = time.perf_counter() if run else None
 
 
 class PhaseTimers:

@@ -853,6 +853,34 @@ def test_fused_run_equals_per_step_run_on_the_card(dev, refine):
     _same_search(fused, plain)
 
 
+@pytest.mark.parametrize("k", [8, 1])
+def test_span_table_on_the_card(dev, k):
+    """tests/test_torch_dispatch.py's 80-point search on the card: its
+    span table has device seconds on the search's steps and on every
+    refine, a capture span a graph built (the step's, and with fused
+    dispatch the body's), no child's host seconds above its parent's,
+    and the device allocations of the call."""
+    opts, P, Q = _small_search(8)
+    m = s4t.MatchSuper4PCS(opts.replace(steps_per_dispatch=k), device=dev)
+    res = m.compute_transformation(P, Q)
+    table = res.stats["spans"]
+    spans = table["spans"]
+    assert spans["search/step"]["device_s"] > 0
+    assert spans["search/step"]["count"] >= res.n_trials // m._b_eff
+    assert spans["setup/warm/step"]["device_s"] > 0
+    refines = [row for path, row in spans.items()
+               if path.rpartition("/")[2] == "refine"]
+    assert len(refines) >= 2
+    assert all(row["device_s"] > 0 for row in refines)
+    assert spans["setup/warm/capture"]["count"] == 1 + (k > 1)
+    assert table["device_allocs"] >= 0 and table["index_builds"] >= 1
+    for path, row in spans.items():
+        prefix = "" if path == "call" else path
+        children = [r["host_s"] for p, r in spans.items()
+                    if p != "call" and p.rpartition("/")[0] == prefix]
+        assert sum(children) <= row["host_s"], path
+
+
 def test_a_matcher_on_a_card_that_is_not_current(dev):
     """A matcher on the last visible card while cuda:0 is the current
     one: its replayed steps (their host copies behind an event on its

@@ -4,7 +4,7 @@ the step's cost model held to the JAX ``step.cost_model`` term by term
 (all but the join's sort and the verify, which count the port's own
 code), ``Options.phase_timing`` filling ``stats["phase_seconds"]`` and
 ``stats["phase_roofline"]`` under the JAX keys, and ``utils/profiling``
-(``trace``, ``timed_phase``)."""
+(``trace``, ``span``, ``PhaseMarks``)."""
 
 import math
 
@@ -220,17 +220,30 @@ def test_phase_timing_fills_stats():
 
 
 def test_trace_and_timed_phase(tmp_path):
-    """``trace`` writes a torch.profiler trace file; ``timed_phase``
-    accumulates into PhaseTimers; PhaseMarks adds up a recurring phase."""
+    """``trace`` writes a torch.profiler trace file, with a span's
+    ``s4p.*`` range in it; ``span`` accumulates a recurring stage's
+    count and host seconds into the open table (device seconds only on
+    the card); PhaseTimers adds up a recurring phase, and PhaseMarks
+    too."""
     x = torch.arange(1000.0)
     with profiling.trace(str(tmp_path)):
-        (x * 2).sum()
-    assert list(tmp_path.glob("*.pt.trace.json"))
+        with profiling.call("cpu"), profiling.span("double"):
+            (x * 2).sum()
+    trace, = tmp_path.glob("*.pt.trace.json")
+    assert '"s4p.double"' in trace.read_text()
+    with profiling.call("cpu") as table:
+        for _ in range(2):
+            with profiling.span("sum", device=x.device) as sp:
+                (x * 3).sum()
+            assert sp.seconds > 0
+    assert table["spans"]["sum"]["count"] == 2
+    assert table["spans"]["sum"]["device_s"] is None
+    assert 0 < table["spans"]["sum"]["host_s"] <= (
+        table["spans"]["call"]["host_s"])
     timers = PhaseTimers()
     for _ in range(2):
-        with profiling.timed_phase(timers, "sum", sync=x):
-            (x * 3).sum()
-    assert set(timers.phases) == {"sum"} and timers.phases["sum"] > 0
+        timers.add("sum", 0.5)
+    assert timers.phases == {"sum": 1.0}
     marks = profiling.PhaseMarks("cpu")
     for name in ("a", "b", "a"):
         marks.mark(name)
