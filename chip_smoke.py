@@ -2383,8 +2383,11 @@ def _step_numbers(m, first: int):
     it, outside the search: its wall (4 steps), device busy time, sort
     time and kernels (2 more under the profiler), idle share; and the
     peak memory of the same step launched op by op (a replay allocates
-    nothing: the graph's pool holds its memory)."""
+    nothing: the graph's pool holds its memory). A matcher whose
+    registration released its graphs captures its step again first."""
     import torch
+    if m._graph is None:
+        m._capture()
     m._run_step(first)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

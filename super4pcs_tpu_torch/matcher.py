@@ -98,6 +98,7 @@ from .ops.pairs import (PairFilterConfig, extract_pairs,
                         extract_pairs_dense_rowcap,
                         extract_pairs_rowcap_layout_both)
 from .utils import Logger, LogLevel, profiling
+from .utils import graphs
 from .utils.graphs import HostCopies, StepGraph
 from .visitor import DummyTransformVisitor, visitor_needs_global
 
@@ -184,6 +185,22 @@ def capture_bounds(opts: Options, engine: str, q_pos):
     if engine == "rowcap" and not opts.estimate_scale:
         return rowcap_layout_kernel.reject_bounds(q_pos)
     return None
+
+
+def warm_kind(opts: Options, engine: str, *, fused: bool, refine: bool,
+              batch: bool = False) -> tuple:
+    """The kind of a warm-up, as the process's record of warmed kinds
+    keys it (``utils.graphs.CaptureContext.warmed``): a batch's step or
+    a single pair's, the resolved engine, the capture route (K2, K2x or
+    none), which pair filters are on, similarity mode, the fused
+    dispatch's body, and the refine. One warm of a kind loads what every
+    later step of that kind launches."""
+    route = ("K2" if uses_capture_kernel(opts, engine)
+             else "K2x" if engine == "rowcap" else None)
+    filters = (opts.max_normal_difference > 0, opts.max_color_distance > 0,
+               opts.max_translation_distance > 0, opts.max_angle > 0)
+    return ("batch" if batch else "pair", engine, route, filters,
+            bool(opts.estimate_scale), bool(fused), bool(refine))
 
 
 def _step_seed(random_seed: int, step_idx: int) -> int:
@@ -594,6 +611,11 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
     which the verify appends each K1 launch's inputs (for the cost
     model).
 
+    ``step.index_keys(np_)``: the (stride, radius) of each verify index
+    ``step.run`` reads (``lcp.VerifyIndex.get``) over P of ``np_``
+    samples, each pair's bases in one shard: what a capture that no
+    eager step precedes needs built.
+
     ``step.cost_model(np_, verify_stages)``: the step's first-order
     operations and bytes per phase (utils/roofline.py), the verify's
     from ``verify_stages`` (``ops.lcp.stage_tests`` of ``stages``).
@@ -706,6 +728,16 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
             marks.stop()
         return out
 
+    def index_keys(np_: int) -> list:
+        c = min(max(128, n_cands), b * k_quads)
+        strides = (lcp.two_stage_strides(c, nq, np_, opts.coarse_q,
+                                         opts.coarse_p, opts.verify_top_k)
+                   if opts.verify_top_k > 0 else [1])
+        keys = [(s, rank_delta) for s in strides]
+        if rank_delta != delta:
+            keys.append((1, delta))
+        return keys
+
     def step(gen, diam, p_pos, p_norm, p_rgb, q_pos, q_norm, q_rgb,
              q_bounds=None, p_index=None, marks=None, stages=None):
         if marks is not None:
@@ -732,6 +764,7 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
 
     step.draw = draw
     step.run = run
+    step.index_keys = index_keys
     step.cost_model = cost_model
     return step, (k_pairs, k_quads, n_cands)
 
@@ -938,8 +971,9 @@ class Match4PCSBase:
         self.device = torch.device(device)
         self._mesh = mesh
         self._b_eff = options.bases_per_step
-        #: the run's captured step and fused body (card, unsharded)
-        self._graph = self._body_graph = None
+        #: the run's captured step and fused body (card, unsharded), and
+        #: the lease of their memory pool (utils/graphs.py)
+        self._graph = self._body_graph = self._lease = None
 
     # ------------------------------------------------------------------
     # public API (mirrors ComputeTransformation, ref:hpp:61-86)
@@ -967,7 +1001,10 @@ class Match4PCSBase:
         """
         visitor = visitor or DummyTransformVisitor()
         with profiling.call(self.device) as spans:
-            res = self._register(P, Q, visitor, resume_state)
+            try:
+                res = self._register(P, Q, visitor, resume_state)
+            finally:
+                self._release_graphs()
         res.stats["spans"] = spans
         return res
 
@@ -1272,37 +1309,73 @@ class Match4PCSBase:
         self.logger.verbose("Initial LCP: ", self._best_lcp)
 
     def _warm(self):
-        """On the card: one step (on every mesh device) and (with refine
-        on) one refine of the current transform, their outputs thrown
-        away, and, unsharded, the capture of the step (and of the fused
-        dispatch's body) and one replay (:meth:`_capture`). It touches
-        no best-so-far, counter, trial count or visitor call, and the
-        run's draws do not move (each step reseeds the generator)."""
+        """On the card: ready the run's step off the clock, touching no
+        best-so-far, counter, trial count or visitor call (each step
+        reseeds the generator, so the run's draws do not move).
+
+        Warm once per process, not once per call (utils/graphs.py). The
+        first warm of its kind (:func:`warm_kind`) on the device in this
+        process, and every warm over a mesh: one step (on every mesh
+        device) and (with refine on) one refine of the current
+        transform, their outputs thrown away, and, unsharded, the
+        capture of the step (and of the fused dispatch's body) after an
+        eager run on the capture stream, and one replay
+        (:meth:`_capture`); a counter ``warm_full`` in the span table. A
+        later warm of that kind builds the verify indexes that the step
+        and the refine read and captures alone; a counter
+        ``warm_reused``. The graphs' pool is the device's, lent until the
+        registration ends (:meth:`_release_graphs`)."""
         if self.device.type != "cuda":
             return
-        self._run_step(-1)
+        ctx = None
         if self._mesh is None:
+            ctx = graphs.context(self.device)
+            opts = self._opts_eff()
+            kind = warm_kind(
+                opts, resolve_pair_engine(opts, int(self._d_q_pos.shape[0])),
+                fused=self._multi_fn is not None,
+                refine=self._refine_active())
+            if kind in ctx.warmed:
+                profiling.count("warm_reused", 1)
+                np_ = int(self._d_p_pos.shape[0])
+                for key in self._step_fn.index_keys(np_):
+                    self._p_index.get(*key)
+                if self._refine_active():
+                    self._p_index.get(1, opts.delta)
+                self._capture(prerun=False)
+                torch.cuda.synchronize(self.device)
+                return
+        profiling.count("warm_full", 1)
+        self._run_step(-1)
+        if ctx is not None:
             self._capture()
             self._run_step(-1)
         if self._refine_active():
             self._refine(self._transform)
         for dev in (self._mesh.devices if self._mesh else (self.device,)):
             torch.cuda.synchronize(dev)
+        if ctx is not None:
+            ctx.warmed.add(kind)
 
-    def _capture(self):
+    def _capture(self, prerun: bool = True):
         """Capture this run's step, as ``step.run`` runs it on the
         step's draws, into a CUDA graph (utils/graphs.py), and with
         fused dispatch its body (:func:`build_multi_step`) into a second
-        one over the packed state, both in one memory pool; and the
-        pinned host copies that two steps in flight read through."""
+        one over the packed state, both in the pool the run leases from
+        the device's capture context; and the pinned host copies that
+        two steps in flight read through. ``prerun``: run each eagerly
+        on the capture stream first (``StepGraph``)."""
         dev = self.device
         diam = self._max_base_diameter
         args = self._step_args()
         run = self._step_fn.run
-        pool = torch.cuda.graph_pool_handle()
+        if self._lease is None:
+            self._lease = graphs.context(dev).lease()
+        pool = self._lease
         with profiling.span("capture"):
             self._graph = StepGraph(lambda *draws: run(draws, diam, *args),
-                                    self._draws(-1), device=dev, pool=pool)
+                                    self._draws(-1), device=dev, pool=pool,
+                                    prerun=prerun)
         self._step_host = HostCopies(
             {k: v[0] for k, v in self._graph.outputs.items()}, dev)
         if self._multi_fn is not None:
@@ -1315,8 +1388,20 @@ class Match4PCSBase:
                                  self._packed)
             with profiling.span("capture"):
                 self._body_graph = StepGraph(lambda: body(out, packed),
-                                             device=dev, pool=pool)
+                                             device=dev, pool=pool,
+                                             prerun=prerun)
             self._fused_host = HostCopies({"packed": packed}, dev)
+
+    def _release_graphs(self):
+        """Drop the run's graphs and its lease of their pool, which goes
+        back to the device's free list once no graph captured into it is
+        left: at an escalation's rebuild, and at the end of the
+        registration (the final refine and ``finish`` replay nothing)."""
+        if self._graph is not None:
+            # a replay of the old graph may still run: let it end before
+            # its memory goes back to the pool
+            torch.cuda.synchronize(self.device)
+        self._graph = self._body_graph = self._lease = None
 
     # ------------------------------------------------------------------
     # device step: B complete RANSAC trials + batched verify
@@ -1342,11 +1427,7 @@ class Match4PCSBase:
             self._b_eff = resolve_bases_per_step(
                 self.options, nq, mesh.size if mesh is not None else 1)
         opts = self._opts_eff()
-        if self._graph is not None:
-            # a replay of the old graph may still run: let it end before
-            # its memory goes back to the pool
-            torch.cuda.synchronize(self.device)
-        self._graph = self._body_graph = None
+        self._release_graphs()
         self._step_fn, caps = build_step(opts, nq, self._cone_mode,
                                          self._band_index)
         self._k_pairs, self._k_quads, self._n_cands = caps

@@ -126,6 +126,18 @@ def _rows(x, idx):
     return x[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
 
 
+def two_stage_strides(c: int, nq: int, np_: int, coarse_q: int = 64,
+                      coarse_p: int = 2048, top_k: int = 2048) -> list:
+    """The strides of P's stage views (``p[..., ::stride, :]``) that
+    :func:`lcp_scores_two_stage` verifies ``c`` candidates against, in
+    the order it reads their indexes."""
+    if c <= top_k:
+        return [1]
+    sp = max(1, -(-np_ // coarse_p))
+    mid = [max(1, -(-np_ // 8192))] if nq > 1024 else []
+    return [sp, *mid, 1]
+
+
 def lcp_scores_two_stage(transforms, q_pos, p_pos, epsilon,
                          coarse_q: int = 64, coarse_p: int = 2048,
                          top_k: int = 2048, live=None,
@@ -147,16 +159,17 @@ def lcp_scores_two_stage(transforms, q_pos, p_pos, epsilon,
     not scored.
     """
     c = transforms.shape[-3]
-    if c <= top_k:
+    nq, np_ = q_pos.shape[-2], p_pos.shape[-2]
+    strides = two_stage_strides(c, nq, np_, coarse_q, coarse_p, top_k)
+    if len(strides) == 1:
         idx = torch.arange(c, device=transforms.device)
         if transforms.ndim == 4:
             idx = idx.expand(transforms.shape[0], c)
         return (lcp_scores(transforms, q_pos, p_pos, epsilon,
                            _stage_index(index, 1, epsilon), stages), idx)
 
-    nq, np_ = q_pos.shape[-2], p_pos.shape[-2]
     sq = max(1, -(-nq // coarse_q))
-    sp = max(1, -(-np_ // coarse_p))
+    sp = strides[0]
     coarse = lcp_scores(transforms, q_pos[..., ::sq, :],
                         p_pos[..., ::sp, :], epsilon,
                         _stage_index(index, sp, epsilon), stages)
@@ -166,7 +179,7 @@ def lcp_scores_two_stage(transforms, q_pos, p_pos, epsilon,
 
     if nq > 1024:
         mq = max(1, -(-nq // 512))
-        mp = max(1, -(-np_ // 8192))
+        mp = strides[1]
         mid = lcp_scores(_rows(transforms, idx), q_pos[..., ::mq, :],
                          p_pos[..., ::mp, :], epsilon,
                          _stage_index(index, mp, epsilon), stages)

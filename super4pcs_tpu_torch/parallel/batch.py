@@ -41,12 +41,19 @@ pair (the JAX package splits threefry keys), so runs of the two
 packages agree statistically, not trial for trial. Every process draws
 the whole step's draws on its first device and each shard takes its
 pairs' slice, so a sharded run draws what an unsharded one draws (the
-generators of two cards of one type give the same numbers for a seed). On the card, one
-step and one refine run before the clock starts, their outputs thrown
-away, and count in ``compile_seconds``: the same off-clock warm-up as
-the single-pair matcher (the CUDA libraries' first calls and the
-verify's cell indexes), where the JAX package compiles inside its first
-timed step.
+generators of two cards of one type give the same numbers for a
+seed). On the card the warm-up runs before the clock starts and counts
+in ``compile_seconds``, where the JAX package compiles inside its first
+timed step. It runs once per process, not once per call, as the
+single-pair matcher's does (``utils/graphs.py``): the first batch of its
+kind on a device (``matcher.warm_kind``), and every batch over a mesh
+of several devices, still pays one step and one refine whose outputs
+are thrown away (the CUDA libraries' first calls, the kernels' first
+loads, the verify's cell indexes); a later batch of that kind in the
+process builds the cell indexes alone. The batched step runs eagerly
+and captures no graph, so it leases no pool; each straggler's matcher
+leases the device's pool for its registration and gives it back at its
+end.
 
 When the engine resolved for the batch's largest Q is "banded", each
 pair's band index (ops/band_extract.py) is built once per run, padded
@@ -72,11 +79,11 @@ from ..matcher import (Match4PCS, MatchSuper4PCS, RegistrationResult,
                        _K_DIAMETER_FRACTION, _K_MIN_TRIALS, _K_SMALL_ERROR,
                        _step_seed, build_step, capture_bounds,
                        resolve_bases_per_step, resolve_pair_engine,
-                       uses_capture_kernel)
+                       uses_capture_kernel, warm_kind)
 from ..options import K_NUMBER_OF_DIAMETER_TRIALS, Options
 from ..ops import geometry, lcp, refine, sampling
 from ..ops.band_extract import build_batched_band_index
-from ..utils import profiling
+from ..utils import graphs, profiling
 from ..visitor import DummyTransformVisitor, visitor_needs_global
 from .sharded import Mesh, run_shards
 
@@ -247,20 +254,16 @@ class BatchRun:
             self.span_device = dev if self.mesh.size == 1 else None
         with profiling.span("warm") as warm:
             if dev.type == "cuda":
-                # the kernels' builds, and one step and one refine whose
-                # outputs are thrown away, on every device, before the
-                # clock (see the module docstring)
+                # the kernels' builds, and before the clock either one
+                # step and one refine whose outputs are thrown away, on
+                # every device, or the verify indexes they read (see the
+                # module docstring)
                 lcp_kernel._lib()
                 if rowcap:
                     rowcap_kernel._lib()
                 if layout:
                     rowcap_layout_kernel._lib()
-                self.run_step(-1)
-                if opts.refine_iterations > 0:
-                    self.refine_pairs(np.tile(np.eye(4, dtype=np.float32),
-                                              (g, 1, 1)))
-                for sh in self.shards:
-                    torch.cuda.synchronize(sh.dev)
+                self._warm()
 
         # initial LCP of the identity per pair (ref:hpp:201); the masked
         # denominator makes sentinel padding exact here and below
@@ -274,6 +277,36 @@ class BatchRun:
         with profiling.span("verify") as verify:
             self.init_scores = self._on_shards(init)["s"]
         self.compile_seconds = build.seconds + warm.seconds + verify.seconds
+
+    def _warm(self):
+        """On the card, once per process and kind (``warm_kind``, the
+        record of ``utils.graphs.context``): the first batch of its kind
+        on one device runs one step and (refine on) one refine, their
+        outputs thrown away (a counter ``warm_full``), as does every
+        batch over a mesh of several devices; a later one builds the
+        verify indexes that the step and the refine read
+        (``warm_reused``)."""
+        opts, refine_on = self.opts, self.opts.refine_iterations > 0
+        ctx = graphs.context(self.dev) if self.mesh.size == 1 else None
+        kind = warm_kind(opts, self.engine, fused=False, refine=refine_on,
+                         batch=True)
+        if ctx is not None and kind in ctx.warmed:
+            profiling.count("warm_reused", 1)
+            for sh in self.shards:
+                for key in sh.step.index_keys(self.np_max):
+                    sh.p_index.get(*key)
+                if refine_on:
+                    sh.p_index.get(1, opts.delta)
+        else:
+            profiling.count("warm_full", 1)
+            self.run_step(-1)
+            if refine_on:
+                self.refine_pairs(np.tile(np.eye(4, dtype=np.float32),
+                                          (self.g, 1, 1)))
+        for sh in self.shards:
+            torch.cuda.synchronize(sh.dev)
+        if ctx is not None:
+            ctx.warmed.add(kind)
 
     @property
     def index_builds(self) -> int:

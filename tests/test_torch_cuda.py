@@ -808,17 +808,18 @@ def test_graphed_step_equals_the_eager_step(dev, engine):
     assert c1[0] > c0[0]                  # the verify launched in replays
 
 
-def _small_search(refine):
-    """tests/test_torch_dispatch.py's 80-point search: (options, P, Q)."""
+def _small_search(refine, n=80):
+    """tests/test_torch_dispatch.py's ``n``-point search: (options, P,
+    Q)."""
     rng = np.random.default_rng(42)
-    pos = _bumpy(rng, 150)[:80]
+    pos = _bumpy(rng, 150)[:n]
     ang = 0.9
     rot = np.array([[np.cos(ang), -np.sin(ang), 0],
                     [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
     q = (pos @ rot.T + np.float32([0.2, -0.1, 0.3])
          + np.random.default_rng(1).normal(scale=0.03, size=pos.shape)
          ).astype(np.float32)
-    opts = s4t.Options(delta=0.05, sample_size=80, max_time_seconds=600,
+    opts = s4t.Options(delta=0.05, sample_size=n, max_time_seconds=600,
                        max_quads=512, max_candidates=1024, random_seed=7,
                        bases_per_step=2, search_escalation_stages=0,
                        refine_iterations=refine
@@ -853,21 +854,44 @@ def test_fused_run_equals_per_step_run_on_the_card(dev, refine):
     _same_search(fused, plain)
 
 
+@pytest.fixture
+def fresh(dev):
+    """The card's capture context with no kind of warm-up recorded: the
+    next registration of each kind warms fully, as the first one of a
+    process does (utils/graphs.py)."""
+    from super4pcs_tpu_torch.utils import graphs
+    ctx = graphs.context(dev)
+    ctx.warmed.clear()
+    return ctx
+
+
+@pytest.mark.parametrize("warmed", [False, True])
 @pytest.mark.parametrize("k", [8, 1])
-def test_span_table_on_the_card(dev, k):
+def test_span_table_on_the_card(dev, fresh, k, warmed):
     """tests/test_torch_dispatch.py's 80-point search on the card: its
     span table has device seconds on the search's steps and on every
     refine, a capture span a graph built (the step's, and with fused
     dispatch the body's), no child's host seconds above its parent's,
-    and the device allocations of the call."""
+    and the device allocations of the call. The first registration of
+    its kind in the process warms fully (a warm-up step, ``warm_full``);
+    once one has (``warmed``), the next captures without one
+    (``warm_reused``)."""
     opts, P, Q = _small_search(8)
-    m = s4t.MatchSuper4PCS(opts.replace(steps_per_dispatch=k), device=dev)
+    opts = opts.replace(steps_per_dispatch=k)
+    if warmed:
+        s4t.MatchSuper4PCS(opts, device=dev).compute_transformation(P, Q)
+    m = s4t.MatchSuper4PCS(opts, device=dev)
     res = m.compute_transformation(P, Q)
     table = res.stats["spans"]
     spans = table["spans"]
     assert spans["search/step"]["device_s"] > 0
     assert spans["search/step"]["count"] >= res.n_trials // m._b_eff
-    assert spans["setup/warm/step"]["device_s"] > 0
+    if warmed:
+        assert "setup/warm/step" not in spans
+        assert table["warm_reused"] == 1 and "warm_full" not in table
+    else:
+        assert spans["setup/warm/step"]["device_s"] > 0
+        assert table["warm_full"] == 1 and "warm_reused" not in table
     refines = [row for path, row in spans.items()
                if path.rpartition("/")[2] == "refine"]
     assert len(refines) >= 2
@@ -879,6 +903,108 @@ def test_span_table_on_the_card(dev, k):
         children = [r["host_s"] for p, r in spans.items()
                     if p != "call" and p.rpartition("/")[0] == prefix]
         assert sum(children) <= row["host_s"], path
+
+
+def _register_on(dev, opts, P, Q):
+    m = s4t.MatchSuper4PCS(opts, device=dev)
+    return m, m.compute_transformation(P, Q)
+
+
+def _warmed_alone(table, *stages):
+    """A table whose warm-ups all reused the process's: a capture in
+    each of ``stages``, and no throw-away step or refine."""
+    spans = table["spans"]
+    assert table.get("warm_reused", 0) >= 1 and "warm_full" not in table
+    for stage in stages:
+        assert spans[f"{stage}/capture"]["count"] >= 1, stage
+        assert f"{stage}/step" not in spans, stage
+        assert f"{stage}/refine" not in spans, stage
+
+
+def test_a_kind_warms_once_per_process(dev, fresh):
+    """Registrations A, then B of another shape, then A again, in one
+    process: the first A warms fully; B and the second A capture
+    without a warm-up step or refine, and the second A allocates nothing
+    on the card and lands the first A's registration bit for bit."""
+    opts, P, Q = _small_search(8)
+    b_opts, bP, bQ = _small_search(8, n=60)
+    a1 = _register_on(dev, opts, P, Q)
+    b = _register_on(dev, b_opts, bP, bQ)
+    a2 = _register_on(dev, opts, P, Q)
+    _same_search(a1, a2)
+    first = a1[1].stats["spans"]
+    assert first["warm_full"] == 1 and "warm_reused" not in first
+    assert "setup/warm/step" in first["spans"]
+    assert "setup/warm/refine" in first["spans"]
+    for _, res in (b, a2):
+        _warmed_alone(res.stats["spans"], "setup/warm")
+        assert res.stats["spans"]["warm_reused"] == 1
+    assert a2[1].stats["spans"]["device_allocs"] == 0
+
+
+def test_an_escalation_warms_once_per_process(dev, fresh):
+    """A search that escalates, twice: the first registration's set-up
+    warms fully and its escalation (a warm-up of the same kind) reuses
+    it; the second registration's set-up and escalation both capture
+    alone, allocate nothing on the card and land the first's
+    registration bit for bit."""
+    opts, P, Q = _small_search(8, n=60)
+    opts = opts.replace(max_pairs=512, search_escalation_stages=1,
+                        steps_per_dispatch=1)
+    a1 = _register_on(dev, opts, P, Q)
+    a2 = _register_on(dev, opts, P, Q)
+    for _, res in (a1, a2):
+        assert res.stats["escalated_to"] == 2.0
+    _same_search(a1, a2)
+    first, second = (r.stats["spans"] for _, r in (a1, a2))
+    assert first["warm_full"] == 1 and first["warm_reused"] == 1
+    _warmed_alone(second, "setup/warm", "search/escalate")
+    assert second["warm_reused"] == 2
+    assert second["device_allocs"] == 0
+
+
+def test_a_batch_warms_once_per_process(dev, fresh):
+    """Two register_batch calls of the same two pairs (no straggler
+    redemption): the second's set-up runs no warm-up step or refine,
+    allocates nothing on the card, and lands the first's registrations
+    bit for bit."""
+    from super4pcs_tpu_torch.parallel import register_batch
+    opts, P, Q = _small_search(8)
+    opts = opts.replace(search_escalation_factor=opts.search_delta_factor)
+    _, bP, bQ = _small_search(8, n=60)
+    pairs = [(P, Q), (bP, bQ)]
+    runs = [register_batch(pairs, opts, device=dev) for _ in range(2)]
+    for r1, r2 in zip(*runs):
+        assert r1.n_trials == r2.n_trials and r1.score == r2.score
+        np.testing.assert_array_equal(r1.transform, r2.transform)
+    first, second = (r[0].stats["spans"] for r in runs)
+    assert first["warm_full"] == 1 and "warm_reused" not in first
+    assert second["warm_reused"] == 1 and "warm_full" not in second
+    assert not [path for path in second["spans"]
+                if path.endswith(("warm/step", "warm/refine"))]
+    assert second["device_allocs"] == 0
+
+
+def test_two_live_matchers_never_share_a_pool(dev):
+    """Two matchers whose graphs are alive hold two pools; one that
+    lets its graphs go gives its pool back to the next matcher, and the
+    other's replays still equal its eager steps."""
+    opts, P, Q = _small_search(8)
+    a = s4t.MatchSuper4PCS(opts, device=dev)
+    a._init(P, Q)
+    b = s4t.MatchSuper4PCS(opts, device=dev)
+    b._init(P, Q)
+    assert a._lease.id != b._lease.id
+    pool_a = a._lease.id
+    a._release_graphs()
+    c = s4t.MatchSuper4PCS(opts, device=dev)
+    c._init(P, Q)
+    assert c._lease.id == pool_a
+    for i in range(3):
+        g = b._run_step(i)
+        e = b._run_step(i, eager=True)
+        for key in e:
+            assert g[key].tobytes() == e[key].tobytes(), (i, key)
 
 
 def test_a_matcher_on_a_card_that_is_not_current(dev):
