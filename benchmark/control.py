@@ -27,19 +27,14 @@ import run
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    opts = {}
-    for flag in ("--what", "--pool-seed"):
-        if flag in argv:
-            i = argv.index(flag)
-            opts[flag] = argv[i + 1]
-            del argv[i:i + 2]
-    what = opts["--what"]
-    pool = opts.get("--pool-seed")
-    pool = None if pool is None else int(pool)
+    i = argv.index("--what")
+    what = argv[i + 1]
+    del argv[i:i + 2]
     if what == "control":
-        return run.main(argv, control=True, pool_seed=pool)
-    return run.main(argv, fault=None if what == "sound" else what,
-                    pool_seed=pool)
+        argv.append("--control")
+    elif what != "sound":
+        argv += ["--fault", what]
+    return run.main(argv)
 
 
 if __name__ == "__main__":

@@ -11,8 +11,13 @@ to come out false.
 - ``half_the_samples``: the verify's mean taken over the first half of
   the source samples only, the rest left out.
 - ``half_the_pairs``: a batch call that leaves out the second half of
-  its pairs: no step, refine or straggler redemption adopts anything
-  for them, so they come back at their starting state.
+  each device's pairs (on one device, of the call's): no step, refine
+  or straggler redemption adopts anything for them, so they come back
+  at their starting state. Over several cards every process leaves out
+  the same pairs.
+- ``exchange_left_out``: over several cards, each process keeps only
+  its own shard's step and refine results and takes the other shards'
+  pairs as unimproved (on one device it changes nothing).
 - ``answer_altered``: each answer's transform moved by 0.5 in x where
   it is produced (the single-pair matcher's recomposed transform; a
   batch step's candidates), its score left as it was.
@@ -94,6 +99,26 @@ def answer_altered():
         yield
 
 
+def _second_halves(run) -> np.ndarray:
+    """(G,) bool: the second half of each device's pairs of the batch
+    ``run``, over every device of its mesh."""
+    out = np.zeros(run.g, bool)
+    for i in range(run.mesh.size):
+        lo, hi = run.mesh.bounds(run.g, i)
+        out[lo + (hi - lo) // 2:hi] = True
+    return out
+
+
+def _others(run) -> np.ndarray:
+    """(G,) bool: the pairs of the batch ``run`` that other processes'
+    shards hold."""
+    out = np.ones(run.g, bool)
+    for i in run.mesh.local_shards():
+        lo, hi = run.mesh.bounds(run.g, i)
+        out[lo:hi] = False
+    return out
+
+
 @contextlib.contextmanager
 def half_the_pairs():
     from super4pcs_tpu_torch.parallel import batch
@@ -110,13 +135,13 @@ def half_the_pairs():
         out = run_step(self, step_idx)
         if step_idx >= 0:
             out["lcp"] = out["lcp"].copy()
-            out["lcp"][self.g // 2:] = -1.0
+            out["lcp"][_second_halves(self)] = -1.0
         return out
 
     def refine(self, src):
         refined, scores = refine_pairs(self, src)
         scores = np.array(scores, copy=True)
-        scores[self.g // 2:] = -np.inf
+        scores[_second_halves(self)] = -np.inf
         return refined, scores
 
     with _patched(batch.BatchRun, "__init__", start), \
@@ -125,7 +150,32 @@ def half_the_pairs():
         yield
 
 
+@contextlib.contextmanager
+def exchange_left_out():
+    from super4pcs_tpu_torch.parallel import batch
+    run_step = batch.BatchRun.run_step
+    refine_pairs = batch.BatchRun.refine_pairs
+
+    def step(self, step_idx):
+        out = run_step(self, step_idx)
+        if step_idx >= 0:
+            out["lcp"] = out["lcp"].copy()
+            out["lcp"][_others(self)] = -1.0
+        return out
+
+    def refine(self, src):
+        refined, scores = refine_pairs(self, src)
+        scores = np.array(scores, copy=True)
+        scores[_others(self)] = -np.inf
+        return refined, scores
+
+    with _patched(batch.BatchRun, "run_step", step), \
+            _patched(batch.BatchRun, "refine_pairs", refine):
+        yield
+
+
 FAULTS = {"state_unchanged": state_unchanged,
           "half_the_samples": half_the_samples,
           "half_the_pairs": half_the_pairs,
-          "answer_altered": answer_altered}
+          "answer_altered": answer_altered,
+          "exchange_left_out": exchange_left_out}

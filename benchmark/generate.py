@@ -3,7 +3,9 @@
 Everything here is numpy and follows the data recipe of a configuration
 file (``configs/<config>.json``, key ``data``) and the call shape of a
 traffic file (``traffic/<traffic>.json``). A later cell adds a recipe or
-a traffic mix as a data file; only a new ``kind`` of recipe needs code.
+a traffic mix as a data file; a new ``kind`` of recipe is a file of its
+own, ``recipes/<kind>.py`` with ``pair(model, data, rng)`` as below,
+found by name.
 
 Recipes (``data["kind"]``):
 
@@ -28,7 +30,13 @@ and a translation uniform in ``[-translation, translation]^3``.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from byname import load
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def bumped_sphere(points: int, seed: int) -> np.ndarray:
@@ -100,20 +108,31 @@ def full_posed(model: np.ndarray, data: dict,
     return pair
 
 
+#: the built-in recipes
 RECIPES = {"slab_views": slab_views, "full_posed": full_posed}
 
 
-def make_calls(data: dict, traffic: dict, seed: int) -> list:
+def recipe(kind: str, here: str = HERE):
+    """The recipe ``kind``: a built-in of :data:`RECIPES`, else the
+    ``pair`` of ``<here>/recipes/<kind>.py``."""
+    return RECIPES[kind] if kind in RECIPES else load(
+        here, "recipes", kind).pair
+
+
+def make_calls(data: dict, traffic: dict, seed: int, here: str = HERE
+               ) -> list:
     """The cell's calls, from ``seed``: ``traffic["calls"]`` calls of
     ``traffic["pairs_per_call"]`` pairs each, every call with its own
     registration seed (``random_seed``). Each pair is a dict with
-    ``target``, ``source``, ``truth`` and, by recipe, the attributes."""
+    ``target``, ``source``, ``truth`` and, by recipe, the attributes.
+    ``here``: the benchmark's folder, where a recipe not built in is
+    found."""
     model = bumped_sphere(**data["model"])
-    recipe = RECIPES[data["kind"]]
+    make = recipe(data["kind"], here)
     rng = np.random.default_rng(seed)
     calls = []
     for _ in range(traffic["calls"]):
-        pairs = [recipe(model, data, rng)
+        pairs = [make(model, data, rng)
                  for _ in range(traffic["pairs_per_call"])]
         calls.append(dict(pairs=pairs,
                           random_seed=int(rng.integers(1, 2 ** 31 - 1))))

@@ -16,7 +16,10 @@ traffic mix; both are data files the harness finds by name:
 
 The metrics are readers found by name too: ``end_to_end/<name>.py`` and
 ``metrics/<name>.py``, each ``read(rec)`` over the run's record (see
-:func:`record`), returning a number or None (left out).
+:func:`record`), returning a number or None (left out). So are an
+``entry`` that :data:`ENTRIES` lacks (``entries/<entry>.py``) and a data
+recipe that ``generate.RECIPES`` lacks (``recipes/<kind>.py``): see
+``byname.py``.
 
 The loop is closed with one client: the next call starts when the last
 returned. The window opens after one warm call of the cell's own
@@ -27,7 +30,6 @@ have passed.
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import os
 import sys
@@ -39,6 +41,7 @@ import numpy as np
 
 import generate
 import roofline
+from byname import load as load_reader
 from reference import lcp as ref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -94,16 +97,6 @@ class Cell:
         return load_reader(self.here, kind, name)
 
 
-def load_reader(here: str, kind: str, name: str):
-    """The reader ``<here>/<kind>/<name>.py`` of a metric."""
-    spec = importlib.util.spec_from_file_location(
-        f"_bench_{kind}_{name}".replace(".", "_").replace("-", "_"),
-        os.path.join(here, kind, f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def options(port, config: dict, random_seed: int):
     o = port.Options(**config["options"], random_seed=random_seed)
     if "overlap" in config:
@@ -131,9 +124,16 @@ def _register_batch(port, pairs, opts, device):
                           device=device)
 
 
-#: the traffic files' entry points
+#: the traffic files' built-in entry points
 ENTRIES = {"api.register": _register,
            "parallel.register_batch": _register_batch}
+
+
+def entry_point(here: str, name: str):
+    """The traffic's entry point ``name``: a built-in of :data:`ENTRIES`,
+    else the ``call`` of ``<here>/entries/<name>.py``."""
+    return ENTRIES[name] if name in ENTRIES else load_reader(
+        here, "entries", name).call
 
 
 def _call_numbers(results) -> dict:
@@ -151,10 +151,13 @@ def _call_numbers(results) -> dict:
 
 
 def check_pairs(cell: Cell, calls: list, done: list, device,
-                control: bool = False) -> list:
+                control: bool = False, shard: Optional[tuple] = None
+                ) -> list:
     """The reference's reading of every answer of the window: (lcp gap,
     rot_diff, tr_err, reported score). ``control`` puts the reference's
-    own score in TF32 in place of the reported one."""
+    own score in TF32 in place of the reported one. ``shard`` (lo, hi):
+    only each call's pairs ``lo:hi`` (one process's of a run over
+    several cards)."""
     delta = float(cell.config["options"]["delta"])
     n = int(cell.config["options"]["sample_size"])
     out = []
@@ -163,7 +166,9 @@ def check_pairs(cell: Cell, calls: list, done: list, device,
             continue
         call = calls[rec["call"]]
         batch = ref.samples(call["pairs"], delta, n, call["random_seed"])
-        for ans, pair, pq in zip(rec["answers"], call["pairs"], batch):
+        lo, hi = shard or (0, len(call["pairs"]))
+        for ans, pair, pq in list(zip(rec["answers"], call["pairs"],
+                                      batch))[lo:hi]:
             # a redeemed straggler was registered alone, with the
             # call's seed
             p, q = (ref.samples([pair], delta, n, call["random_seed"])[0]
@@ -217,7 +222,8 @@ def record(done: list, window_s: float, setup_s: float,
     returned = [r for r in done if not r.get("error")]
     calls = [r for r in returned if not r["profiled"]] or returned
     return dict(calls=[{k: r[k] for k in ("wall_s", "search_s", "trials",
-                                          "pairs", "refine_s")}
+                                          "pairs", "refine_s", "exchange_s")
+                        if k in r}
                        for r in calls],
                 window_s=window_s, setup_s=setup_s, trace=trace,
                 pose_s=pose, pairs=sum(r["pairs"] for r in done))
@@ -227,44 +233,96 @@ def _stderr(msg: str):
     print(msg, file=sys.stderr, flush=True)
 
 
-def run(root: str, cell_name: str, seed: int, seconds: float, traced: bool,
-        *, device: str = "cuda", t_start: Optional[float] = None,
-        control: bool = False, cell: Optional[Cell] = None,
-        pool_seed: Optional[int] = None) -> dict:
-    """One run of ``cell_name``; returns the result line's object.
-    ``t_start``: the epoch time the run's process started. ``pool_seed``
-    draws a pooled traffic's pool from another seed than its file's (the
-    correctness readings over several pools; the benchmark's own runs
-    keep the file's)."""
-    t_start = time.time() if t_start is None else t_start
-    cell = cell or Cell(root, cell_name)
-    import torch
-    import super4pcs_tpu_torch as port
-    torch.set_num_threads(1)
-    dev = torch.device(device)
-    on_card = dev.type == "cuda"
-    entry = ENTRIES[cell.traffic["entry"]]
+def calls_of(cell: Cell, seed: int, pool_seed: Optional[int] = None
+             ) -> tuple:
+    """(the run's distinct calls, its warm call, the generator of the
+    order the calls are sent in). A pool ("pool_seed"): the same calls
+    for every seed, the seed drawing the order they are sent in, pass
+    after pass; ``pool_seed`` draws it from another seed than the
+    traffic file's."""
     traffic = cell.traffic
-    # a pool ("pool_seed"): the same calls for every seed, the seed
-    # drawing the order they are sent in, pass after pass
     if "pool_seed" in traffic:
         seed_calls = traffic["pool_seed"] if pool_seed is None else pool_seed
     else:
         seed_calls = seed % 2 ** 64
     calls = generate.make_calls(
         cell.config["data"], dict(traffic, calls=traffic["calls"] + 1),
-        seed_calls)
+        seed_calls, here=cell.here)
     warm = calls.pop()
-    rng = np.random.default_rng(seed % 2 ** 64)
+    return calls, warm, np.random.default_rng(seed % 2 ** 64)
+
+
+def caller(port, cell: Cell, dev):
+    """``one(call)``: the call through the traffic's entry point, with the
+    configuration's options and the call's registration seed."""
+    import torch
+    entry = entry_point(cell.here, cell.traffic["entry"])
 
     def one(call):
         opts = options(port, cell.config, call["random_seed"])
         with torch.profiler.record_function("register"):
             return entry(port, call["pairs"], opts, dev)
+    return one
 
+
+def timed_call(one, calls: list, k: int, watch, profiled: bool, dev
+               ) -> tuple:
+    """(the record of call ``k`` of the window, the clock after it): its
+    wall, the refines' seconds of a traced run (``watch``, else None),
+    over several cards the port's collectives' seconds (a ``watch`` with
+    ``exchange``), the collection after it, and on the card the
+    allocator's counters."""
+    import torch
+    t0 = time.perf_counter()
+    refines = len(watch.refine_s) if watch else 0
+    exchanges = len(watch.exchange_s) if watch else 0
+    rec = dict(call=k, pairs=len(calls[k]["pairs"]), profiled=profiled)
+    try:
+        results = one(calls[k])
+        rec.update(_call_numbers(results))
+    except Exception:
+        rec["error"] = traceback.format_exc()
+        _stderr(rec["error"])
+    t1 = time.perf_counter()
+    rec["wall_s"] = t1 - t0
+    rec["refine_s"] = sum(watch.refine_s[refines:]) if watch else 0.0
+    if watch and watch.exchange:
+        rec["exchange_s"] = sum(watch.exchange_s[exchanges:])
+    # the call's garbage (its matcher, captured graph and memory pool)
+    # is collected here, inside the window, so that no later call's
+    # latency pays for it
+    gc.collect()
+    t1 = time.perf_counter()
+    rec["gc_s"] = t1 - t0 - rec["wall_s"]
+    if dev.type == "cuda":
+        mem = torch.cuda.memory_stats(dev)
+        rec["memory"] = [mem.get(k, -1) for k in (
+            "reserved_bytes.all.current", "num_device_alloc",
+            "num_device_free", "num_alloc_retries")]
+    return rec, t1
+
+
+def window(one, calls: list, warm: dict, rng, seconds: float,
+           traced: bool, dev, t_start: float, *, exchange: bool = False,
+           decide=bool, reduce=None) -> tuple:
+    """The warm call and the measured window of a run on ``dev``: calls
+    drawn from ``calls`` in the order of ``rng``, pass after pass, until
+    ``seconds`` have passed. A traced run watches the calls (``exchange``:
+    the port's collectives too) and profiles them for its first
+    :data:`TRACE_SECONDS`. ``decide`` turns each of the window's
+    decisions (the profiled stretch ends, the window closes) into the
+    one every process of the run takes (process 0's over several cards;
+    in one process, the decision itself); ``reduce`` reduces the
+    profiled stretch (default :func:`_reduced`). Returns (the window's
+    call records, its seconds, the set-up seconds since the epoch time
+    ``t_start``, the reduced trace of a traced run on the card else
+    None, the peak of the device's memory)."""
+    import torch
     from contextlib import nullcontext
     from tracing import Stretch, Watch
-    watch = (Watch(ROOFLINE_KERNELS if on_card else ())
+    reduce = reduce or _reduced
+    on_card = dev.type == "cuda"
+    watch = (Watch(ROOFLINE_KERNELS if on_card else (), exchange=exchange)
              if traced else nullcontext())
     done, trace_out = [], None
     with watch:
@@ -288,35 +346,12 @@ def run(root: str, cell_name: str, seed: int, seconds: float, traced: bool,
             if not order:
                 order = rng.permutation(len(calls)).tolist()
             k = order.pop(0)
-            t0 = time.perf_counter()
-            refines = len(watch.refine_s) if traced else 0
-            rec = dict(call=k, pairs=len(calls[k]["pairs"]),
-                       profiled=stretch is not None)
-            try:
-                results = one(calls[k])
-                rec.update(_call_numbers(results))
-            except Exception:
-                rec["error"] = traceback.format_exc()
-                _stderr(rec["error"])
-            t1 = time.perf_counter()
-            rec["wall_s"] = t1 - t0
-            rec["refine_s"] = (sum(watch.refine_s[refines:]) if traced
-                               else 0.0)
-            # the call's garbage (its matcher, captured graph and memory
-            # pool) is collected here, inside the window, so that no
-            # later call's latency pays for it
-            gc.collect()
-            t1 = time.perf_counter()
-            rec["gc_s"] = t1 - t0 - rec["wall_s"]
-            if on_card:
-                mem = torch.cuda.memory_stats(dev)
-                rec["memory"] = [mem.get(k, -1) for k in (
-                    "reserved_bytes.all.current", "num_device_alloc",
-                    "num_device_free", "num_alloc_retries")]
+            rec, t1 = timed_call(one, calls, k, watch if traced else None,
+                                 stretch is not None, dev)
             done.append(rec)
-            if stretch and t1 - t_stretch >= TRACE_SECONDS:
+            if stretch and decide(t1 - t_stretch >= TRACE_SECONDS):
                 t_reduce = time.perf_counter()
-                trace_out = _reduced(stretch)
+                trace_out = reduce(stretch)
                 # the trace's reading is not the window's: the window
                 # goes on for its seconds of calls after it
                 t_window += time.perf_counter() - t_reduce
@@ -328,18 +363,53 @@ def run(root: str, cell_name: str, seed: int, seconds: float, traced: bool,
                     stretch = Stretch(watch)
                     stretch.start()
                     t_stretch = time.perf_counter()
-            if t1 - t_window >= seconds:
+            if decide(t1 - t_window >= seconds):
                 break
         window_s = time.perf_counter() - t_window
         if stretch:
-            trace_out = _reduced(stretch)
+            trace_out = reduce(stretch)
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    readings = check_pairs(cell, calls, done, dev, control)
+    return done, window_s, setup_s, trace_out, peak
 
-    correct, attempted, failed, checks = verdict(cell, done, readings)
+
+def run(root: str, cell_name: str, seed: int, seconds: float, traced: bool,
+        *, device: str = "cuda", t_start: Optional[float] = None,
+        control: bool = False, cell: Optional[Cell] = None,
+        pool_seed: Optional[int] = None) -> dict:
+    """One run of ``cell_name`` in this process, on one device; returns
+    the result line's object. ``t_start``: the epoch time the run's
+    process started. ``pool_seed`` draws a pooled traffic's pool from
+    another seed than its file's (the correctness readings over several
+    pools; the benchmark's own runs keep the file's). A cell on several
+    cards runs one process a card instead (``ranks.py``)."""
+    t_start = time.time() if t_start is None else t_start
+    cell = cell or Cell(root, cell_name)
+    import torch
+    import super4pcs_tpu_torch as port
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    calls, warm, rng = calls_of(cell, seed, pool_seed)
+    one = caller(port, cell, dev)
+    done, window_s, setup_s, trace_out, peak = window(
+        one, calls, warm, rng, seconds, traced, dev, t_start)
+    readings = check_pairs(cell, calls, done, dev, control)
+    return result_line(cell, done, verdict(cell, done, readings), window_s,
+                       setup_s, trace_out, traced, dev, peak)
+
+
+def result_line(cell: Cell, done: list, judged: tuple, window_s: float,
+                setup_s: float, trace_out: Optional[dict], traced: bool,
+                dev, peak: int, count: int = 1) -> dict:
+    """The result line's object of a run: ``judged`` is
+    :func:`verdict`'s (correct, attempted, failed, checks), ``count``
+    the cards the run used, ``peak`` the peak on the fullest. Prints
+    each call, the window and the checks, last, on standard error."""
+    import torch
+    correct, attempted, failed, checks = judged
+    on_card = dev.type == "cuda"
     pose = [r["wall_s"] for r in done if not r.get("error")
             for _ in range(r["pairs"])]
     good = attempted - failed
@@ -356,7 +426,7 @@ def run(root: str, cell_name: str, seed: int, seconds: float, traced: bool,
             "device": {"platform": "gpu" if on_card else dev.type,
                        "kind": (torch.cuda.get_device_name(dev) if on_card
                                 else "cpu"),
-                       "count": 1,
+                       "count": count,
                        "memory_peak_bytes": int(peak)}}
     if traced and trace_out:
         line["device"]["busy_s"] = trace_out["busy_s"]
@@ -378,7 +448,7 @@ def run(root: str, cell_name: str, seed: int, seconds: float, traced: bool,
                 f"trials {r.get('trials', 0)}, reserved, cudaMalloc, "
                 f"cudaFree, retries {r.get('memory')}, scores "
                 f"{[round(a['score'], 4) for a in r.get('answers', [])]}")
-    _stderr(f"{cell_name}: {len(done)} calls, {attempted} pairs, "
+    _stderr(f"{cell.name}: {len(done)} calls, {attempted} pairs, "
             f"{failed} failed, window {window_s:.3f} s, set-up "
             f"{setup_s:.3f} s, pose seconds "
             f"{sorted(round(s, 3) for s in pose)}")

@@ -11,7 +11,14 @@ in every module of the port that binds them, and takes them out again:
 - each roofline kernel's launching function (``roofline/<kernel>.py``
   ``SPY``): while a stretch is recorded, the (bytes, operations) of
   every call, apart for calls made while a CUDA graph is captured (they
-  run again at every replay).
+  run again at every replay);
+- over several cards (``exchange``), the port's collectives
+  (``torch.distributed``'s :data:`EXCHANGE`, which the port looks up on
+  ``torch.distributed`` at each call): each call timed by the host
+  clock, waits for the other processes included, inside a
+  ``record_function("exchange")`` range. The harness's own collectives
+  call ``torch.distributed.distributed_c10d``'s functions, which stay
+  unwatched.
 
 A proxy forwards attribute reads and writes to the function it wraps,
 so the port's launch counters on it keep working.
@@ -47,6 +54,11 @@ class _Proxy:
 
     def __setattr__(self, name, value):
         setattr(self._fn, name, value)
+
+
+#: the ``torch.distributed`` functions of the port's collectives: each
+#: step's per-pair results and process 0's clock
+EXCHANGE = ("all_gather_object", "broadcast")
 
 
 def _port_modules():
@@ -102,14 +114,20 @@ class _KernelWork:
 class Watch:
     """The traced run's proxies (see the module doc)."""
 
-    def __init__(self, kernels=()):
+    def __init__(self, kernels=(), exchange: bool = False):
         from super4pcs_tpu_torch.ops import refine, sampling
         self.refine_s = []
+        self.exchange = exchange
+        self.exchange_s = []
         self.kernels = {k: _KernelWork(k) for k in kernels}
         self._targets = [
             (refine.refine_transform, self._timed_refine),
             (sampling.sample_for_matching, self._ranged("sampling"))]
         self._targets += [(w.fn, w.on_call) for w in self.kernels.values()]
+        self._names = []
+        if exchange:
+            import torch.distributed as dist
+            self._names = [(dist, name) for name in EXCHANGE]
         self._undo = []
 
     def _timed_refine(self, fn, args, kwargs):
@@ -123,6 +141,14 @@ class Watch:
                 torch.cuda.synchronize()
             self.refine_s.append(time.perf_counter() - t0)
         return out
+
+    def _timed_exchange(self, fn, args, kwargs):
+        with torch.profiler.record_function("exchange"):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.exchange_s.append(time.perf_counter() - t0)
 
     @staticmethod
     def _ranged(label):
@@ -139,6 +165,10 @@ class Watch:
                     if value is fn:
                         setattr(mod, attr, proxy)
                         self._undo.append((mod, attr, fn))
+        for mod, attr in self._names:
+            fn = getattr(mod, attr)
+            setattr(mod, attr, _Proxy(fn, self._timed_exchange))
+            self._undo.append((mod, attr, fn))
         return self
 
     def __exit__(self, *exc):
