@@ -33,7 +33,12 @@ never escalates; after the batch loop, pairs still below the terminate
 threshold are re-registered one by one through the port's single-pair
 matcher at the escalated search factor, worst first, within the wall
 budget left (straggler redemption; off when
-``search_escalation_factor`` <= ``search_delta_factor``).
+``search_escalation_factor`` <= ``search_delta_factor``). Over a mesh
+that spans processes every process holds the same list: straggler
+``j`` is redeemed by process ``j mod m`` on its own device, and one
+gather then gives every process every redeemed answer (score,
+transform, trials and stats; each process moves the pair's Q itself),
+so all return the same results.
 
 Where the port differs: randomness comes from a ``torch.Generator``
 reseeded per step from ``(random_seed, step index)`` and drawn pair by
@@ -85,7 +90,7 @@ from ..ops import geometry, lcp, refine, sampling
 from ..ops.band_extract import build_batched_band_index
 from ..utils import graphs, profiling
 from ..visitor import DummyTransformVisitor, visitor_needs_global
-from .sharded import Mesh, run_shards
+from .sharded import Mesh, gather_objects, run_shards
 
 # Q-side sentinel coordinate — beyond ops.lcp.Q_PAD so the masked LCP
 # denominator excludes these rows (see ops/lcp.py::q_valid_mask).
@@ -368,6 +373,52 @@ def _put(a, dev):
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
 
+def straggler_order(lcp, threshold: float) -> list:
+    """The stragglers: the pairs whose ``lcp`` is below ``threshold``,
+    worst first (ties in pair order)."""
+    return sorted((i for i in range(len(lcp)) if lcp[i] < threshold),
+                  key=lambda i: lcp[i])
+
+
+def straggler_share(order: list, rank: int, world: int) -> list:
+    """The stragglers of ``order`` that process ``rank`` of ``world``
+    redeems: straggler ``j`` goes to process ``j mod world``, which
+    spreads the worst pairs over the cards."""
+    return order[rank::world]
+
+
+def merge_redeemed(order: list, answers: dict, lcp, factor: float) -> dict:
+    """The redeemed answers kept ({pair: result}), in the order of the
+    list ``order``: those that improved and beat the pair's batch LCP
+    ``lcp``, each marked ``straggler_escalated_to`` ``factor``."""
+    kept = {}
+    for i in order:
+        r = answers.get(i)
+        if r is not None and r.score > lcp[i] and r.improved:
+            r.stats["straggler_escalated_to"] = factor
+            kept[i] = r
+    return kept
+
+
+def _exchange_redeemed(answers: dict, pairs, mesh) -> dict:
+    """Every process's redeemed answers ({pair: result}) in every
+    process, from one gather over ``mesh``'s processes. An answer
+    travels as its score, transform, trials, improved flag and stats
+    (not its span table); each process moves the pair's Q by the
+    transform itself."""
+    sent = {i: (r.score, r.transform, r.n_trials, r.improved,
+                {k: v for k, v in r.stats.items() if k != "spans"})
+            for i, r in answers.items()}
+    out = {}
+    for got in gather_objects(mesh, sent):
+        for i, (score, mat, trials, improved, stats) in got.items():
+            out.setdefault(i, RegistrationResult(
+                score=score, transform=mat,
+                transformed_q=pairs[i][1].transformed(mat),
+                n_trials=trials, improved=improved, stats=stats))
+    return out
+
+
 def register_batch(
     pairs: Sequence[Tuple[PointCloud, PointCloud]],
     options: Optional[Options] = None,
@@ -391,8 +442,9 @@ def register_batch(
     pair's results, so the loop state and ``on_checkpoint``'s state are
     identical replicas, and process 0's clock decides the stop rule in
     every process. The guarded refine runs on each shard's pairs.
-    Straggler redemption runs in single-process runs only (processes
-    would race its serial loop).
+    Straggler redemption splits its list over the processes: each
+    redeems its share on its own device, and one gather gives every
+    process every redeemed answer.
 
     ``visitor``: optional callable ``visitor(fraction, scores, mats)``
     with per-pair arrays ``scores (G,)`` / ``mats (G, 4, 4)`` — called
@@ -416,7 +468,10 @@ def register_batch(
     Every result's ``stats["spans"]`` is the call's one span table
     (``utils/profiling.py``): "setup" (``BatchRun``), "search" (its
     steps), "refine", "redeem" (each straggler's registration a "call"
-    under it) and "finish".
+    under it; over several processes the gather of the answers,
+    "exchange") and "finish"; with redemption on, the counters
+    ``stragglers`` (the list's length), ``redeemed_here`` (this
+    process's registrations) and ``redeem_kept`` (the answers kept).
     """
     if len(pairs) == 0:
         return []
@@ -585,18 +640,19 @@ def _register_batch(pairs, options, mesh, algorithm, visitor, resume_state,
     # Straggler redemption (single-pair escalation analog, see module
     # docstring): re-register the pairs still below the terminate
     # threshold individually at the escalated search factor, worst
-    # first, while wall budget remains.
+    # first, while wall budget remains; over several processes each
+    # redeems its share of the list on its own card, and one exchange
+    # gives every process every redeemed answer.
     redeemed = {}
     if (opts.search_escalation_factor > opts.search_delta_factor
-            and opts.refine_iterations > 0 and n_procs == 1):
+            and opts.refine_iterations > 0):
         cls = MatchSuper4PCS if algorithm == "super4pcs" else Match4PCS
-        order = sorted(
-            (i for i in range(g)
-             if best["lcp"][i] < opts.terminate_threshold),
-            key=lambda i: best["lcp"][i])
-        if order:
+        order = straggler_order(best["lcp"], opts.terminate_threshold)
+        profiling.count("stragglers", len(order))
+        if order or n_procs > 1:
             with profiling.span("redeem"):
-                for i in order:
+                answers = {}
+                for i in straggler_share(order, run.mesh.rank, n_procs):
                     remaining = (opts.max_time_seconds
                                  - (time.perf_counter() - t0))
                     if remaining < max(0.1 * opts.max_time_seconds, 15.0):
@@ -610,16 +666,22 @@ def _register_batch(pairs, options, mesh, algorithm, visitor, resume_state,
                         max_time_seconds=int(remaining),
                         use_full_time_budget=True,
                         bases_per_step=None)
-                    r = cls(sub, device=dev).compute_transformation(
+                    answers[i] = cls(sub, device=dev).compute_transformation(
                         pairs[i][0], pairs[i][1])
-                    if r.score > best["lcp"][i] and r.improved:
-                        # kept OUTSIDE the resumable batch_state: the
-                        # redeemed transform lives in original coordinates
-                        # (the batch state tracks centered-frame poses); a
-                        # resumed run simply redeems again
-                        r.stats["straggler_escalated_to"] = \
-                            opts.search_escalation_factor
-                        redeemed[i] = r
+                profiling.count("redeemed_here", len(answers))
+                if n_procs > 1:
+                    # every process gathers once, whatever its share
+                    # held, so that none is left inside the collective
+                    with profiling.span("exchange"):
+                        answers = _exchange_redeemed(answers, pairs,
+                                                     run.mesh)
+                # kept OUTSIDE the resumable batch_state: the redeemed
+                # transform lives in original coordinates (the batch
+                # state tracks centered-frame poses); a resumed run
+                # simply redeems again
+                redeemed = merge_redeemed(order, answers, best["lcp"],
+                                          opts.search_escalation_factor)
+            profiling.count("redeem_kept", len(redeemed))
 
     with profiling.span("finish"):
         profiling.count("index_builds", run.index_builds)

@@ -5,7 +5,8 @@ process drives one device (one process per card), and a global
 :class:`~.sharded.Mesh` over every process's device carries the
 scan-graph batch of ``register_batch`` on its pairs axis. The only
 traffic between processes is each step's per-pair results (a few
-hundred bytes a pair) and process 0's clock.
+hundred bytes a pair), process 0's clock, and once a call the
+redeemed stragglers' answers.
 
 The collectives run on the gloo backend over host tensors: the host
 reads every step's results anyway, gloo takes any number of processes

@@ -142,12 +142,17 @@ def run_shards(mesh: Mesh, fn, lazy=()) -> list:
         host = _fetch({k: v for k, v in out.items() if k not in lazy})
         host.update({k: out[k] for k in lazy})
         got.append(host)
-    if mesh.group is not None:
-        import torch.distributed as dist
-        every = [None] * mesh.size
-        dist.all_gather_object(every, got[0], group=mesh.group)
-        got = every
-    return got
+    return gather_objects(mesh, got[0]) if mesh.group is not None else got
+
+
+def gather_objects(mesh: Mesh, obj) -> list:
+    """Every process's ``obj``, in process order, from one
+    ``all_gather_object`` over the group of ``mesh``, a mesh that spans
+    processes."""
+    import torch.distributed as dist
+    every = [None] * mesh.size
+    dist.all_gather_object(every, obj, group=mesh.group)
+    return every
 
 
 #: the outputs taken from the winning shard

@@ -10,7 +10,11 @@ from, or a step after which every process dies (a preempted job). With
 ``budget_steps`` the budget is measured on the machine as it is loaded
 now: a first job without the slowed process gives the slowest process's
 search seconds per step, and the budget is ``budget_steps`` steps of
-that plus the sleep.
+that plus the sleep. With ``redeem`` straggler redemption is on (one
+refine iteration, the escalation above the search factor) and each
+straggler's matcher is :class:`_Redeemer`, a fixed answer that names the
+process that ran it (after ``redeem_sleep`` seconds); ``alone`` adds the
+same pairs registered in this one process, with no mesh.
 """
 
 import json
@@ -55,9 +59,38 @@ def main():
     opts = Options(delta=0.05, sample_size=80,
                    max_time_seconds=control.get("max_time_seconds", 60),
                    bases_per_step=4, max_quads=256, max_candidates=256,
-                   refine_iterations=0, random_seed=3,
+                   refine_iterations=1 if control.get("redeem") else 0,
+                   random_seed=3,
                    use_full_time_budget=control.get("full_budget", False),
-                   ).configure_overlap(0.9, control.get("threshold", 1.0))
+                   ).configure_overlap(control.get("overlap", 0.9),
+                                       control.get("threshold", 1.0))
+
+    if control.get("redeem"):
+        from super4pcs_tpu_torch.matcher import RegistrationResult
+        from super4pcs_tpu_torch.parallel import batch
+
+        class _Redeemer:
+            """A straggler's matcher: the noisy pair's true pose at LCP
+            0.995, in no time (a real redemption runs to its wall
+            budget on the CPU); its stats name the process that ran it
+            and the search factor it was given."""
+
+            def __init__(self, options, device=None):
+                self.options = options
+
+            def compute_transformation(self, P, Q):
+                time.sleep(control.get("redeem_sleep", 0.0))
+                mat = np.eye(4, dtype=np.float32)
+                mat[:3, :3] = rot.T
+                mat[:3, 3] = -rot.T @ np.float32([0.2, -0.1, 0.3])
+                return RegistrationResult(
+                    score=0.995, transform=mat,
+                    transformed_q=Q.transformed(mat), n_trials=64,
+                    improved=True,
+                    stats={"search_seconds": 0.0, "redeemed_by": pid,
+                           "factor": self.options.search_delta_factor})
+
+        batch.MatchSuper4PCS = _Redeemer
 
     if "budget_steps" in control:
         probe = register_batch(
@@ -96,16 +129,36 @@ def main():
                              visitor=visitor,
                              resume_state=control.get("resume_state"),
                              on_checkpoint=on_checkpoint)
-    out = {
-        "pid": pid,
+    out = dict(_summary(results), pid=pid,
+               batch_state=results[0].stats["batch_state"])
+    if control.get("alone") and pid == 0:
+        out["alone"] = _summary(register_batch(pairs, opts, device="cpu"))
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def _summary(results) -> dict:
+    """What the parent compares: each pair's score, improved flag,
+    transform and trials, a redeemed pair's flag and matcher stats, the
+    call's redemption counters and its seconds inside the gather of the
+    redeemed answers."""
+    import numpy as np
+    spans = results[0].stats["spans"]
+    return {
         "scores": [float(r.score) for r in results],
         "improved": [bool(r.improved) for r in results],
         "transforms": [np.asarray(r.transform).tolist() for r in results],
         "trials": results[0].n_trials,
-        "batch_state": results[0].stats["batch_state"],
+        "n_trials": [int(r.n_trials) for r in results],
+        "escalated": [r.stats.get("straggler_escalated_to")
+                      for r in results],
+        "redeemed_by": [r.stats.get("redeemed_by") for r in results],
+        "factor": [r.stats.get("factor") for r in results],
+        "counters": {k: spans.get(k) for k in (
+            "stragglers", "redeemed_here", "redeem_kept")},
+        "exchange_s": spans["spans"].get("redeem/exchange",
+                                         {}).get("host_s"),
     }
-    dist.destroy_process_group()
-    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

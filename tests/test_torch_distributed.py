@@ -112,6 +112,83 @@ def test_two_process_crash_resume(tmp_path):
     assert by_pid[0]["scores"][0] > 0.8
 
 
+#: a job whose noisy pair stays below the stop (0.99) after the batch:
+#: the one straggler, redeemed by process 0 (straggler 0 of the list)
+_REDEEM = dict(redeem=True, overlap=0.99, threshold=0.99)
+
+
+def test_two_process_redemption_equals_one_process(tmp_path):
+    """Straggler redemption over two processes: process 0 redeems the
+    one straggler, the gather gives process 1 its answer, and both
+    return what one process's ``register_batch`` of the same pairs
+    returns, bit for bit."""
+    by_pid = _spawn_job(dict(_REDEEM, alone=True), tmp_path)
+    _same_on_both(by_pid)
+    a, b = by_pid[0], by_pid[1]
+    alone = a.pop("alone")
+    for key in ("n_trials", "escalated", "redeemed_by", "factor"):
+        assert a[key] == b[key], key
+    for key in ("scores", "improved", "transforms", "n_trials",
+                "escalated", "redeemed_by", "factor"):
+        assert a[key] == alone[key], key
+    assert a["escalated"] == [None, 2.0] and a["factor"] == [None, 2.0]
+    assert a["redeemed_by"] == [None, 0] and a["scores"][1] == 0.995
+    assert a["n_trials"][1] == a["trials"] + 64
+    assert a["counters"] == dict(stragglers=1, redeemed_here=1,
+                                 redeem_kept=1)
+    assert b["counters"] == dict(stragglers=1, redeemed_here=0,
+                                 redeem_kept=1)
+    assert alone["counters"] == a["counters"]
+    assert alone["exchange_s"] is None and b["exchange_s"] > 0
+
+
+def test_two_process_redemption_with_an_empty_share_does_not_hang(
+        tmp_path):
+    """Process 1 has no straggler to redeem and its visitor sleeps on
+    every call; it still enters the one gather and waits there for
+    process 0's redemption (a second), and the job ends with the same
+    results on both."""
+    by_pid = _spawn_job(dict(_REDEEM, slow_rank=1, sleep=0.15,
+                             redeem_sleep=1.0), tmp_path)
+    _same_on_both(by_pid)
+    assert by_pid[1]["redeemed_by"] == [None, 0]
+    assert by_pid[1]["counters"]["redeemed_here"] == 0
+    assert by_pid[1]["exchange_s"] >= 0.5
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+def test_straggler_split_and_merge(world):
+    """Every process computes the same list, worst first; straggler j
+    goes to process j mod world, so the shares cover the list once. The
+    merge keeps, in list order, the answers that improved and beat the
+    batch's LCP, flagged with the escalated factor."""
+    import numpy as np
+    from super4pcs_tpu_torch.matcher import RegistrationResult
+    from super4pcs_tpu_torch.parallel import batch
+    lcp = np.float32([0.9, 0.2, 0.5, 0.2, 0.95, 0.1, 0.69])
+    order = batch.straggler_order(lcp, 0.7)
+    assert order == [5, 1, 3, 2, 6]
+    shares = [batch.straggler_share(order, r, world) for r in range(world)]
+    assert sorted(sum(shares, [])) == sorted(order)
+    assert shares[0][0] == 5 and all(
+        order.index(i) % world == r for r, share in enumerate(shares)
+        for i in share)
+
+    def answer(score, improved):
+        return RegistrationResult(score=score, transform=np.eye(4),
+                                  transformed_q=None, n_trials=1,
+                                  improved=improved, stats={})
+
+    answers = {6: answer(0.8, True), 1: answer(0.2, True),
+               3: answer(0.9, False), 2: answer(0.75, True)}
+    kept = batch.merge_redeemed(order, answers, lcp, 2.0)
+    assert list(kept) == [2, 6]
+    assert all(kept[i] is answers[i] for i in kept)
+    assert [answers[i].stats for i in (6, 1, 3, 2)] == [
+        {"straggler_escalated_to": 2.0}, {}, {},
+        {"straggler_escalated_to": 2.0}]
+
+
 def test_initialize_without_a_card_raises():
     """With no CUDA card visible, ``initialize`` without a device raises
     before it joins any job (no quiet CPU run); so does ``make_mesh()``."""
