@@ -34,6 +34,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (the same kernel on the rows as they are, for K4a/K4b) the same way;
    torch.cdist + amin over the whole 16384 x 530,895 matrix as the
    library yardstick of K4a and of K3 at C = 1;
+3c. KR (the refine's neighbour walk, kernels/lcp.py::nearest_within) on
+   the headline's samples, 8192 queries under a pose near the true one
+   against P at the trim radius of 2, 4 and 8 delta: bit for bit its
+   plain walk, the same neighbour as the refine's brute force
+   (ops/refine.py::_nearest) on >= 99.9% of the queries within the
+   radius; its time, pair tests a query, bound and plain time, the
+   brute force's time, and a whole refine with the walk and with the
+   brute force, their transforms within 1e-5;
 4. K2 (band capture) against its plain version at n = 8192,
    row_cap = 160, edge 0 with the join hash: cols/rc/h bit-identical,
    then the same with tile-pair rejection on (the one-thread-per-row
@@ -59,12 +67,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 5. the headline registration — the 100k-point noisy bumpy-sphere pair
    of bench.py, Options(delta=0.01, sample_size=8192) through
    MatchSuper4PCS on the GPU (rowcap engine, rejection on).
-   lcp_min_d2_within and rowcap_capture must have launched; LCP >= 0.7
-   and the known pose within
-   rotDiff <= 0.2 / trDiff <= 0.1;
+   lcp_min_d2_within and rowcap_capture must have launched, and KR 8
+   times a refine (the "refine" spans of its span table, at least one,
+   and its ``refine_walks`` counter); LCP >= 0.7 and the known pose
+   within rotDiff <= 0.2 / trDiff <= 0.1;
 5b. the filtered registration at the same width: radial normals and
    abs(pos) * 200 colors (tools/parity_configs.py:105-121), normal and
-   color filters of BASELINE Config 3; same gates, filtered K2 launches;
+   color filters of BASELINE Config 3; same gates, filtered K2 launches,
+   KR 8 times a refine;
 5c. the CLI from files (``cli.main``, as ``super4pcs-torch`` runs it):
    the headline pair written as PLY with the port's writer (the read
    time of a 100k-point file printed, with the parser tier that read it
@@ -189,7 +199,8 @@ before it and read just after (5n's in each of its processes, summed).
 
 With ``--scale-only`` it runs phases 1-2 and 5h-5i alone, so that 5h is
 the first registration in its process; with ``--dispatch-only``, phases
-1-2 and 5q; with ``--xla-only``, phases 1-2, 4c, 5r and 5s (and, with
+1-2 and 5q; with ``--refine-only``, phases 1-2, 3c and 5; with
+``--xla-only``, phases 1-2, 4c, 5r and 5s (and, with
 ``--seeds``, 5r once per seed: search seconds, steps, trials, LCP).
 
 Exits with code 2 and prints no result when no CUDA device is present.
@@ -227,6 +238,10 @@ K2_HASH_OPS = 15
 K1B_NAME = "lcp_min_d2_tiles_kernel"
 K1B_FILL = "lcp_min_d2_tiles_fill_kernel"
 K1W_NAME = "lcp_min_d2_within_kernel"
+#: the refine's neighbour walk (KR), and the multiples of the trim radius
+#: at the search factor 1 it is checked at (one and two escalations)
+KR_NAME = "refine_nearest_within_kernel"
+KR_FACTORS = (1.0, 2.0, 4.0)
 K2_NAME = "rowcap_capture_kernel"
 K2_NAMES = (K2_NAME, "rowcap_prep_kernel")
 #: the previous, one-thread-per-row capture kernel, ms per launch on an
@@ -508,7 +523,8 @@ def _counters() -> dict:
             "rowcap_capture_filtered": (k2.rowcap_capture,
                                         "filtered_launches"),
             "rowcap_layout": (k2x.rowcap_layout, "launches"),
-            "rowcap_layout_captures": (k2x.rowcap_layout, "captures")}
+            "rowcap_layout_captures": (k2x.rowcap_layout, "captures"),
+            "nearest_within": (k1.nearest_within, "launches")}
 
 
 def _run_path(label, fn, counters):
@@ -528,6 +544,115 @@ def _run_path(label, fn, counters):
     _log(f"{label} launches: {counts}; max_memory_allocated "
          f"{peak:.1f} MiB")
     return res, counts, wall, peak
+
+
+def _refine_launches(label, res, counts, iters: int) -> int:
+    """The refines of one registration (the "refine" spans of its span
+    table), each an ICP loop of ``iters`` iterations that launches KR
+    once an iteration: its launch count and the table's
+    ``refine_walks`` must both be ``iters`` x the refines, and at least
+    one refine must have run. Returns the refines."""
+    table = res.stats["spans"]
+    refines = sum(row["count"] for path, row in table["spans"].items()
+                  if path.rsplit("/", 1)[-1] == "refine")
+    walks, launched = table["refine_walks"], counts["nearest_within"]
+    _log(f"{label} refines: {refines}, refine_walks {walks}, KR launches "
+         f"{launched} ({iters} a refine)")
+    if not (refines >= 1 and walks == launched == iters * refines):
+        raise SystemExit(f"{label}: the refines did not launch KR "
+                         f"{iters} times each")
+    return refines
+
+
+def _refine_walk_rows(p_pos, q_pos, delta, dev) -> dict:
+    """Phase 3c: KR (``kernels/lcp.py::nearest_within``) on the
+    headline's samples under a pose near the true one, at the trim
+    radius of the search factors in ``KR_FACTORS``: bit for bit its
+    plain walk, the same neighbour as the brute force (``ops/refine.py::
+    _nearest``, the refine's step before the walk) on at least 99.9% of
+    the queries within the radius; its time (P's index built beforehand),
+    pair tests a query, bound and plain time, the brute force's time,
+    and a whole refine (8 iterations) with the walk and with the brute
+    force, their transforms within 1e-5. Returns the rows by factor."""
+    import numpy as np
+    import torch
+    from super4pcs_tpu_torch.kernels import lcp as k1
+    from super4pcs_tpu_torch.ops import refine
+    pose = _pose_sampler(dev)(1)[0].contiguous()
+    q, p = q_pos, p_pos
+    nq, np_ = q.shape[0], p.shape[0]
+    tq = q @ pose[:3, :3].T + pose[:3, 3]
+    idx, d2 = refine._nearest(tq, p)
+    rows = {}
+    for sf in KR_FACTORS:
+        r = refine.trim_radius(delta, 8, sf)
+        index = k1.grid_index(p, r)
+        got = k1.nearest_within(pose, q, p, r, index)
+        plain = k1.nearest_within_plain(pose, q, p, r, index)
+        torch.cuda.synchronize()
+        same = torch.equal(got, plain)
+        within = d2 <= float(np.float32(r) * np.float32(r))
+        agree = ((got[:, :3] == p[idx]).all(1) & within).sum()
+        agree_share = int(agree) / max(int(within.sum()), 1)
+        found = int(torch.isfinite(got[:, 3]).sum())
+        del plain
+        ms = _kernel_ms(lambda: k1.nearest_within(pose, q, p, r, index),
+                        KR_NAME, reps=20)
+        plain_ms = _cuda_ms(
+            lambda: k1.nearest_within_plain(pose, q, p, r, index), reps=3)
+        brute_ms = _cuda_ms(lambda: refine._nearest(tq, p), reps=5)
+        tests = k1.pair_tests(pose[None], q, p, r)
+        # the pair tests at K1's operations each; the transform, Q, P's
+        # index (float4 points, int32 keys) and its grid read once, the
+        # (x, y, z, d^2) rows written once
+        bound_ms, bound_by = _bound(
+            K1_OPS * tests, 4 * (16 + 3 * nq + 5 * np_ + 4 * nq + 7))
+
+        def walk():
+            return refine.refine_transform(pose, q, p, delta,
+                                           start_factor=sf, index=index)
+
+        def brute():
+            return refine._icp(pose, q, refine._radii(delta, 8, sf),
+                               refine._brute(q, p))
+        err = float((walk() - brute()).abs().max())
+        refine_ms = _cuda_ms(walk, reps=5)
+        refine_brute_ms = _cuda_ms(brute, reps=3)
+        _log(f"KR refine walk {sf:g}x: nq={nq} np={np_} radius={r:.6g} "
+             f"equal to plain walk={same} found={found} same neighbour as "
+             f"the brute force on {100 * agree_share:.3f}% of the queries "
+             f"within the radius; pair tests {tests / nq:.1f} per query "
+             f"(brute force {np_}); kernel {ms:.4f} ms plain "
+             f"{plain_ms:.3f} ms bound {bound_ms:.5f} ms ({bound_by}), "
+             f"brute force {brute_ms:.3f} ms; a refine (8 iterations) "
+             f"{refine_ms:.2f} ms with the walk, {refine_brute_ms:.2f} ms "
+             f"with the brute force, max|dT| {err:.3e}")
+        if not (same and agree_share >= 0.999 and err <= 1e-5):
+            raise SystemExit(f"KR at {sf:g}x the trim radius disagrees "
+                             f"with its plain walk or the brute force")
+        rows[f"{sf:g}x"] = dict(
+            shape=f"nq={nq} np={np_} radius={r:.6g}", ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, pair_tests_per_query=tests / nq,
+            brute_force_ms=brute_ms, same_neighbour_share=agree_share,
+            refine_ms=refine_ms, refine_brute_force_ms=refine_brute_ms,
+            refine_max_abs_err=err)
+    return rows
+
+
+def _headline_path(P, Q, opts, s4, counters, by_path, report):
+    """Phase 5: the headline registration through the public entry
+    point, K1, K2 and (per refine) KR launched; returns (its result, its
+    pairs per step)."""
+    res, counts, wall, peak = _run_path(
+        "headline", lambda: s4.MatchSuper4PCS(
+            opts, device="cuda").compute_transformation(
+                s4.PointCloud(P), s4.PointCloud(Q)), counters)
+    by_path["headline"] = counts
+    if min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0:
+        raise SystemExit("a kernel of the main path never launched")
+    _refine_launches("headline", res, counts, opts.refine_iterations)
+    return res, report("headline", res, wall, peak)
 
 
 def _seed_runs(seeds, opts, fopts, clouds, s4):
@@ -873,7 +998,8 @@ def _graph_kernels(graph):
     named = {(k1.lcp_min_d2_within, "launches"): K1W_NAME,
              (k1.lcp_min_d2, "launches"): K1B_NAME,
              (k2.rowcap_capture, "launches"): K2_NAME,
-             (k2x.rowcap_layout, "launches"): K2X_NAME}
+             (k2x.rowcap_layout, "launches"): K2X_NAME,
+             (k1.nearest_within, "launches"): KR_NAME}
     return len(nodes), {c: sum(name in n for n in nodes)
                         for c, name in named.items()}
 
@@ -2667,6 +2793,16 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--refine-only" in sys.argv:
+        # phases 3c and 5 alone: KR, and the main path that launches it
+        kr_rows = _refine_walk_rows(p_pos, q_pos, opts.delta, dev)
+        _headline_path(P, Q, opts, s4, counters, by_path, report)
+        print(json.dumps({"kernels": [dict(name="nearest_within",
+                                           shapes=kr_rows)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     k1_err = 0.0
     near_pose = _pose_sampler(dev)
 
@@ -2876,6 +3012,9 @@ def main() -> int:
              f"{qs.shape[0]} np={up.shape[0]} ({gb:.1f} GB matrix): "
              f"{lib_ms:.3f} ms (max|cdist^2 - plain| {lib_err:.3e})")
     del up, uqp, got, ref
+
+    # 3c. KR, the refine's neighbour walk, at the headline's shapes
+    kr_rows = _refine_walk_rows(p_pos, q_pos, opts.delta, dev)
 
     # 4. K2 against its plain version (edge 0 with the join hash)
     gen = torch.Generator(device=dev)
@@ -3122,15 +3261,8 @@ def main() -> int:
                                       dev)
 
     # 5. the headline registration through the public entry point
-    res, counts, wall, peak = _run_path(
-        "headline", lambda: s4.MatchSuper4PCS(
-            opts, device="cuda").compute_transformation(
-                s4.PointCloud(P), s4.PointCloud(Q)), counters)
-    by_path["headline"] = counts
-    if min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0:
-        raise SystemExit("a kernel of the main path never launched")
-    pairs_headline = report("headline", res, wall, peak)
-    headline_res = res
+    headline_res, pairs_headline = _headline_path(P, Q, opts, s4, counters,
+                                                  by_path, report)
 
     # 5b. the filtered registration at the headline's width
     fopts = (s4.Options(delta=0.01, sample_size=8192,
@@ -3144,6 +3276,7 @@ def main() -> int:
     if (min(counts["lcp_min_d2_within"], counts["rowcap_capture"]) <= 0
             or counts["rowcap_capture_filtered"] <= 0):
         raise SystemExit("a kernel of the filtered path never launched")
+    _refine_launches("filtered", res, counts, fopts.refine_iterations)
     pairs_filtered = report("filtered", res, wall, peak)
     _log(f"pairs per step: filtered {pairs_filtered:.0f} against "
          f"unfiltered headline {pairs_headline:.0f} "
@@ -3322,6 +3455,13 @@ def main() -> int:
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "rejected_share", "bound_after_reject_ms",
                  "bound_after_reject_by")}),
+        dict(name="nearest_within", route="cuda",
+             source="super4pcs_tpu_torch/csrc/lcp.cu",
+             replaces=("no TPU kernel: the JAX refine's neighbour step "
+                       "super4pcs_tpu/ops/refine.py:20 (_nearest) is XLA"),
+             launches=sum(launches("nearest_within").values()),
+             launches_by_path=launches("nearest_within"),
+             shapes=kr_rows, **kr_rows["1x"]),
     ]
     if "--seeds" in sys.argv:
         seeds = [int(x) for x in

@@ -2,7 +2,9 @@
 // in two kernels: lcp_min_d2_tiles_kernel, the brute force's min by an
 // exact branch-and-bound over a tiled index of P, and the grid-pruned
 // lcp_min_d2_within_kernel of the main path's verify (its note is below
-// the first's).
+// the first's). Beside them refine_nearest_within_kernel, the refine's
+// nearest neighbour within the trim radius, walks the verify's cell
+// index (its note is below the verify's).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -504,6 +506,57 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ keys,
   return lo;
 }
 
+// The query box of t at radius eps on the grid [lo_x, lo_y, lo_z, L, nx,
+// ny, nz]: the inclusive cell range lo..hi per axis, false where it
+// holds no cell (t not finite, or the box outside the grid).
+__device__ __forceinline__ bool query_box(const float t[3],
+                                          const float* __restrict__ grid,
+                                          float eps, int lo[3],
+                                          int hi[3]) {
+  if (!(isfinite(t[0]) && isfinite(t[1]) && isfinite(t[2]))) return false;
+  const float side = grid[3];
+  const float tmax = fmaxf(fmaxf(fabsf(t[0]), fabsf(t[1])),
+                           fmaxf(fabsf(t[2]), eps));
+  const float e = __fadd_rn(__fmul_rn(eps, 1.f + 0x1p-20f),
+                            __fmul_rn(0x1p-20f, tmax));
+  bool empty = false;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float top = __fsub_rn(grid[4 + a], 1.f);
+    const float flo = floorf(__fdiv_rn(
+        __fsub_rn(__fsub_rn(t[a], e), grid[a]), side));
+    const float fhi = floorf(__fdiv_rn(
+        __fsub_rn(__fadd_rn(t[a], e), grid[a]), side));
+    const bool outside = fhi < 0.f || flo > top;
+    empty |= outside;
+    lo[a] = outside ? 0 : (int)fmaxf(flo, 0.f);
+    hi[a] = outside ? 0 : (int)fminf(fhi, top);
+  }
+  return !empty;
+}
+
+// visit(j) for every position j in [p0, p1) of the sorted keys whose
+// cell lies in the box lo..hi, in key order: per (x, y) column one
+// binary search for the first key of the column's z range.
+template <class Visit>
+__device__ __forceinline__ void walk_box(const int* __restrict__ keys,
+                                         int p0, int p1,
+                                         const float* __restrict__ grid,
+                                         const int lo[3], const int hi[3],
+                                         Visit&& visit) {
+  const int ny = (int)grid[5], nz = (int)grid[6];
+  int from = p0;  // keys grow with (ix, iy): later columns start later
+  for (int ix = lo[0]; ix <= hi[0]; ++ix) {
+    for (int iy = lo[1]; iy <= hi[1]; ++iy) {
+      const int col = (ix * ny + iy) * nz;
+      const int kend = col + hi[2];
+      int j = lower_bound(keys, from, p1, col + lo[2]);
+      for (; j < p1 && __ldg(keys + j) <= kend; ++j) visit(j);
+      from = j;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 lcp_min_d2_within_kernel(const float* __restrict__ transforms,
                          const float* __restrict__ q,
@@ -526,51 +579,84 @@ lcp_min_d2_within_kernel(const float* __restrict__ transforms,
   const float* grid = grids + 7 * pair;
   const int p0 = offs[pair], p1 = offs[pair + 1];
   float best = INFINITY;
-  if (p1 > p0 && isfinite(t[0]) && isfinite(t[1]) && isfinite(t[2])) {
-    const float side = grid[3];
-    const float tmax = fmaxf(fmaxf(fabsf(t[0]), fabsf(t[1])),
-                             fmaxf(fabsf(t[2]), eps));
-    const float e = __fadd_rn(__fmul_rn(eps, 1.f + 0x1p-20f),
-                              __fmul_rn(0x1p-20f, tmax));
-    int lo[3], hi[3];
-    bool empty = false;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float top = __fsub_rn(grid[4 + a], 1.f);
-      const float flo = floorf(__fdiv_rn(
-          __fsub_rn(__fsub_rn(t[a], e), grid[a]), side));
-      const float fhi = floorf(__fdiv_rn(
-          __fsub_rn(__fadd_rn(t[a], e), grid[a]), side));
-      const bool outside = fhi < 0.f || flo > top;
-      empty |= outside;
-      lo[a] = outside ? 0 : (int)fmaxf(flo, 0.f);
-      hi[a] = outside ? 0 : (int)fminf(fhi, top);
-    }
-    if (!empty) {
-      const int ny = (int)grid[5], nz = (int)grid[6];
-      const float tx = t[0], ty = t[1], tz = t[2];
-      int from = p0;  // keys grow with (ix, iy): later columns start later
-      for (int ix = lo[0]; ix <= hi[0]; ++ix) {
-        for (int iy = lo[1]; iy <= hi[1]; ++iy) {
-          const int col = (ix * ny + iy) * nz;
-          const int kend = col + hi[2];
-          int j = lower_bound(keys, from, p1, col + lo[2]);
-          for (; j < p1 && __ldg(keys + j) <= kend; ++j) {
-            const float4 v = __ldg(pts + j);
-            const float dx = __fsub_rn(tx, v.x);
-            const float dy = __fsub_rn(ty, v.y);
-            const float dz = __fsub_rn(tz, v.z);
-            const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                                 __fmul_rn(dy, dy)),
-                                       __fmul_rn(dz, dz));
-            best = fminf(best, d2);
-          }
-          from = j;
-        }
-      }
-    }
+  int lo[3], hi[3];
+  if (p1 > p0 && query_box(t, grid, eps, lo, hi)) {
+    walk_box(keys, p0, p1, grid, lo, hi, [&](int j) {
+      const float4 v = __ldg(pts + j);
+      best = fminf(best, sum_sq(__fsub_rn(t[0], v.x), __fsub_rn(t[1], v.y),
+                                __fsub_rn(t[2], v.z)));
+    });
   }
   out[g] = best <= eps2 ? best : INFINITY;
+}
+
+// refine_nearest_within_kernel: the nearest neighbour of one ICP
+// iteration of the refine (ops/refine.py::refine_transform).
+//
+// Replaces no Pallas kernel: the JAX package's refine finds neighbours
+// with XLA (super4pcs_tpu/ops/refine.py::_nearest), a dense pass over
+// all of P under the |t|^2 + |p|^2 - 2 t.p expansion, blocked for the
+// TPU's matrix unit; the port's first version did the same with cuBLAS
+// and elementwise planes of (nq, 4096) floats in device memory. The
+// refine weighs only queries whose d2 is within the trim radius r
+// (2 delta max(1, start_factor)), and a query of zero weight adds
+// nothing whatever neighbour it got, so the nearest point within r is
+// all it needs.
+//
+// Design. A walk, not a dense pass: the work drops from nq x np pair
+// tests to nq x the points of the 27-64 cells of side >= r around each
+// query. The verify's cell index of P at radius r (kernels/lcp.py::
+// grid_index), its query box (query_box) and its walk (walk_box). One
+// thread owns one query, applies the (4, 4) transform in registers and
+// keeps the point of least d2 <= r2; ties go to the lower position in
+// key order (the walk visits positions in increasing order, and only a
+// strictly smaller d2 replaces the best). It writes (x, y, z, d2) of that
+// point, or (0, 0, 0, +inf) where no point lies within r (a non-finite
+// query, the Q_PAD sentinel rows, an empty box). Returning the point,
+// not its index, makes the repeat-padded P of register_batch harmless:
+// a duplicate gives the same target.
+//
+// Bound. As the verify's walk: the L2 reads of the points and keys and
+// the latency of the dependent binary searches, not the fp32 rate; one
+// launch is one transform, so 8192 threads, 32 blocks of 256.
+//
+// Numerics. row_apply and sum_sq (__f*_rn, no FMA), so the output is
+// bit-identical to the plain walk of the same index (kernels/lcp.py::
+// nearest_within_plain).
+
+__global__ void __launch_bounds__(THREADS)
+refine_nearest_within_kernel(const float* __restrict__ m,
+                             const float* __restrict__ q,
+                             const float4* __restrict__ pts,
+                             const int* __restrict__ keys,
+                             const float* __restrict__ grid,
+                             float4* __restrict__ out, int nq, int np,
+                             float eps, float eps2) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= nq) return;
+  const float x = q[3 * i], y = q[3 * i + 1], z = q[3 * i + 2];
+  const float t[3] = {row_apply(m, x, y, z), row_apply(m + 4, x, y, z),
+                      row_apply(m + 8, x, y, z)};
+  float best = INFINITY;
+  int at = -1;
+  int lo[3], hi[3];
+  if (query_box(t, grid, eps, lo, hi)) {
+    walk_box(keys, 0, np, grid, lo, hi, [&](int j) {
+      const float4 v = __ldg(pts + j);
+      const float d2 = sum_sq(__fsub_rn(t[0], v.x), __fsub_rn(t[1], v.y),
+                              __fsub_rn(t[2], v.z));
+      if (d2 <= eps2 && d2 < best) {
+        best = d2;
+        at = j;
+      }
+    });
+  }
+  if (at < 0) {
+    out[i] = make_float4(0.f, 0.f, 0.f, INFINITY);
+  } else {
+    const float4 v = __ldg(pts + at);
+    out[i] = make_float4(v.x, v.y, v.z, best);
+  }
 }
 
 }  // namespace
@@ -643,5 +729,25 @@ extern "C" int lcp_min_d2_within(const void* transforms, const void* q,
       (const float*)transforms, (const float*)q, (const float4*)pts,
       (const int*)keys, (const int*)offs, (const float*)grids,
       (float*)out, total, nq, per_pair, eps, eps2);
+  return (int)cudaGetLastError();
+}
+
+// transform: (4, 4) f32; q: (nq, 3) f32; pts: (np, 4) f32, keys: (np,)
+// i32 and grid: (7,) f32, one cloud's cell index (kernels/lcp.py::
+// grid_index), np >= 1; out: (nq, 4) f32; all contiguous on the device
+// of `stream`; eps2 = float32(eps) * float32(eps). One launch. Returns
+// cudaGetLastError.
+extern "C" int refine_nearest_within(const void* transform, const void* q,
+                                     const void* pts, const void* keys,
+                                     const void* grid, void* out, int nq,
+                                     int np, float eps, float eps2,
+                                     void* stream) {
+  if (nq == 0) return 0;
+  const int blocks = (nq + THREADS - 1) / THREADS;
+  refine_nearest_within_kernel<<<blocks, THREADS, 0,
+                                 (cudaStream_t)stream>>>(
+      (const float*)transform, (const float*)q, (const float4*)pts,
+      (const int*)keys, (const float*)grid, (float4*)out, nq, np, eps,
+      eps2);
   return (int)cudaGetLastError();
 }

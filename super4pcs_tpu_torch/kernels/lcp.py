@@ -20,6 +20,10 @@ say what bounds them and how they are laid out.
   untransformed ``_min_dist_kernel`` / ``_min_dist_stream_kernel`` (K4a
   / K4b) through :func:`min_sq_dists`. :func:`tiled_walk` is the
   kernel's walk in torch, for the CPU tests.
+- :func:`nearest_within` is the refine's neighbour step on the card:
+  per query under one transform, the point of P nearest it within a
+  radius, from a walk of the same cell index as the verify's. It
+  replaces no TPU kernel (the JAX refine's search is XLA).
 
 The wrappers send a CPU tensor to the plain version and launch the
 kernel for a CUDA tensor (or raise): there is no fallback between the
@@ -563,6 +567,11 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_float] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.refine_nearest_within
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -864,6 +873,120 @@ def lcp_min_d2_within(transforms: torch.Tensor, q: torch.Tensor,
 #: kernel launches since the count was last reset (CUDA path only)
 lcp_min_d2_within.launches = 0
 launch_counter(lcp_min_d2_within, "launches")
+
+
+def _cloud_index(p, radius, index):
+    """``index``, one cloud's ``(pts, keys, grid)`` as :func:`grid_index`
+    returns it, checked against ``p``; built at ``radius`` when None."""
+    if index is None:
+        return grid_index(p, radius)
+    pts, keys, grid = index
+    if (pts.shape[0] != p.shape[0] or keys.shape[0] != p.shape[0]
+            or tuple(grid.shape) != (7,)
+            or any(t.device != p.device for t in index)):
+        raise ValueError(f"nearest_within: the index holds {pts.shape[0]} "
+                         f"points on {pts.device}, not {p.shape[0]} on "
+                         f"{p.device}")
+    return index
+
+
+def _no_neighbour(nq: int, dev) -> torch.Tensor:
+    out = torch.zeros((nq, 4), dtype=torch.float32, device=dev)
+    out[:, 3] = float("inf")
+    return out
+
+
+def nearest_within_plain(transform: torch.Tensor, q: torch.Tensor,
+                         p: torch.Tensor, radius, index=None
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`nearest_within`: the same index and
+    query box, walked with ``searchsorted`` over the key columns
+    (:func:`walk_ranges`) and a ragged gather, blocked over the queries;
+    the least d^2 of each query's candidates within ``radius``, then the
+    least position among the candidates at that d^2. Bit for bit the
+    kernel."""
+    nq, dev = q.shape[0], q.device
+    out = _no_neighbour(nq, dev)
+    if nq == 0 or p.shape[0] == 0:
+        return out
+    pts, keys, grid = _cloud_index(p, radius, index)
+    tx, ty, tz = (t.reshape(-1) for t in _transformed(transform[None], q))
+    starts, counts = walk_ranges(tx, ty, tz, keys, grid, radius)
+    k = starts.shape[1]
+    if k == 0:
+        return out
+    r2 = float(np.float32(radius) * np.float32(radius))
+    rb = max(1, _elem_budget(dev) // max(1, int(counts.sum(dim=1).max())))
+    for r0 in range(0, nq, rb):
+        r1 = min(r0 + rb, nq)
+        cnt = counts[r0:r1].reshape(-1)
+        tot = int(cnt.sum())
+        if tot == 0:
+            continue
+        seg = torch.repeat_interleave(
+            torch.arange(cnt.shape[0], device=dev), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        j = (starts[r0:r1].reshape(-1)[seg]
+             + torch.arange(tot, device=dev) - first[seg])
+        row = r0 + seg // k
+        v = pts[j]
+        d = tx[row] - v[:, 0]
+        d.mul_(d)
+        e = ty[row] - v[:, 1]
+        d.add_(e.mul_(e))
+        e = tz[row] - v[:, 2]
+        d.add_(e.mul_(e))
+        keep = d <= r2
+        row, j, d = row[keep], j[keep], d[keep]
+        best = out[:, 3].scatter_reduce(0, row, d, "amin")
+        tie = d == best[row]
+        at = torch.full((nq,), pts.shape[0], dtype=torch.int64,
+                        device=dev).scatter_reduce(0, row[tie], j[tie],
+                                                   "amin")
+        found = at < pts.shape[0]
+        out[found, :3] = pts[at[found], :3]
+        out[found, 3] = best[found]
+    return out
+
+
+def nearest_within(transform: torch.Tensor, q: torch.Tensor,
+                   p: torch.Tensor, radius, index=None) -> torch.Tensor:
+    """(nq, 4) f32: for each query of ``q`` (nq, 3) moved by ``transform``
+    (4, 4), the point of P (np, 3) nearest it within ``radius`` and its
+    squared distance, ``(x, y, z, d^2)``; ``(0, 0, 0, +inf)`` where no
+    point lies within ``radius`` (a non-finite query included). d^2 in
+    the verify's order; of equally near points, the one first in the
+    index's key order. The refine's neighbour step
+    (ops/refine.py::refine_transform).
+
+    ``index`` is P's cell index at ``radius``, one cloud's ``(pts, keys,
+    grid)`` (:func:`grid_index`, or ``GridIndex.part``); without it the
+    index is built on this call. CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    dev = _check("nearest_within", transform[None], q, p)
+    if dev.type == "cpu":
+        return nearest_within_plain(transform, q, p, radius, index)
+    nq, np_ = q.shape[0], p.shape[0]
+    if nq == 0 or np_ == 0:
+        return _no_neighbour(nq, dev)
+    pts, keys, grid = _cloud_index(p, radius, index)
+    transform, q = transform.contiguous(), q.contiguous()
+    out = torch.empty((nq, 4), dtype=torch.float32, device=dev)
+    r32 = np.float32(radius)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.refine_nearest_within(
+            transform.data_ptr(), q.data_ptr(), pts.data_ptr(),
+            keys.data_ptr(), grid.data_ptr(), out.data_ptr(), nq, np_,
+            float(r32), float(r32 * r32), stream), "nearest_within")
+    nearest_within.launches += 1
+    return out
+
+
+#: kernel launches since the count was last reset (CUDA path only)
+nearest_within.launches = 0
+launch_counter(nearest_within, "launches")
 
 
 def min_sq_dists_plain(tq: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

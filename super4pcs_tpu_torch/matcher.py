@@ -1342,6 +1342,7 @@ class Match4PCSBase:
                     self._p_index.get(*key)
                 if self._refine_active():
                     self._p_index.get(1, opts.delta)
+                    self._refine_index()
                 self._capture(prerun=False)
                 torch.cuda.synchronize(self.device)
                 return
@@ -1929,7 +1930,9 @@ class Match4PCSBase:
                 cur_t, self._d_q_pos, self._d_p_pos, self.options.delta,
                 iters=self.options.refine_iterations,
                 start_factor=self._search_sf,
-                estimate_scale=self.options.estimate_scale)
+                estimate_scale=self.options.estimate_scale,
+                index=(self._refine_index() if refine.walks(dev)
+                       else None))
             scores = lcp.lcp_scores(
                 torch.stack([cur_t, refined]), self._d_q_pos,
                 self._d_p_pos, self.options.delta,
@@ -1938,6 +1941,14 @@ class Match4PCSBase:
 
     def _refine_active(self) -> bool:
         return self.options.refine_iterations > 0
+
+    def _refine_index(self):
+        """P's cell index at the refine's trim radius for the live search
+        factor (``refine.trim_radius``), built once per run and radius;
+        read by the refine's walk on the card alone (``refine.walks``)."""
+        return self._p_index.get(1, refine.trim_radius(
+            self.options.delta, self.options.refine_iterations,
+            self._search_sf)).part(0)
 
     def _refine_candidate(self, out):
         """Guarded refine of a step's selected candidate that did NOT

@@ -257,6 +257,10 @@ class BatchRun:
             #: the device of the step's and refines' device spans (none
             #: over a mesh of several devices)
             self.span_device = dev if self.mesh.size == 1 else None
+            #: the radius of the cell index the refine's walk reads (on
+            #: the card: refine.walks)
+            self.refine_radius = refine.trim_radius(
+                opts.delta, opts.refine_iterations, opts.search_delta_factor)
         with profiling.span("warm") as warm:
             if dev.type == "cuda":
                 # the kernels' builds, and before the clock either one
@@ -302,6 +306,7 @@ class BatchRun:
                     sh.p_index.get(*key)
                 if refine_on:
                     sh.p_index.get(1, opts.delta)
+                    sh.p_index.get(1, self.refine_radius)
         else:
             profiling.count("warm_full", 1)
             self.run_step(-1)
@@ -353,11 +358,14 @@ class BatchRun:
         def one(sh):
             d_p, d_q = sh.arrays[0], sh.arrays[3]
             cur = _put(src[sh.lo:sh.hi], sh.dev)
+            index = (sh.p_index.get(1, self.refine_radius)
+                     if refine.walks(sh.dev) else None)
             refined = torch.stack([refine.refine_transform(
                 cur[i], d_q[i], d_p[i], opts.delta,
                 iters=opts.refine_iterations,
                 start_factor=opts.search_delta_factor,
-                estimate_scale=opts.estimate_scale)
+                estimate_scale=opts.estimate_scale,
+                index=None if index is None else index.part(i))
                 for i in range(sh.hi - sh.lo)])
             scores = lcp.lcp_scores(torch.stack([cur, refined], dim=1),
                                     d_q, d_p, opts.delta,

@@ -13,7 +13,7 @@ import super4pcs_tpu_torch as s4t
 from super4pcs_tpu_torch.kernels import lcp as k1
 from super4pcs_tpu_torch.kernels import rowcap as k2
 from super4pcs_tpu_torch.kernels import rowcap_layout as k2x
-from super4pcs_tpu_torch.ops import masking, sampling
+from super4pcs_tpu_torch.ops import masking, refine, sampling
 
 from _tile_cases import NAMES as TILE_CASES
 from _tile_cases import case as tile_case
@@ -1206,3 +1206,145 @@ def test_xla_route_registration_on_the_card(dev):
     assert np.median(np.linalg.norm(moved - target, axis=1)) < 0.05
     assert k2x.rowcap_layout.launches > before[0]
     assert k2.rowcap_capture.launches == before[1]
+
+
+# ------------------------------------------------ the refine's neighbour walk
+
+@pytest.fixture(scope="module")
+def headline():
+    """chip_smoke.py's headline pair as the matcher verifies it: P's
+    samples (~75k points) and Q's 8192 in kd order, both centered, and
+    a pose near the true one (rotation part, in those frames)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import bench
+    import chip_smoke as cs
+    dev = torch.device("cuda")
+    P, Q = bench.fine_delta_pair()
+    opts = cs._headline_options(s4t)
+    p, q = cs._samples(s4t, P, Q, opts.delta, opts.sample_size,
+                       opts.random_seed, dev)
+    return p, q, cs._pose_sampler(dev)(1)[0], opts.delta
+
+
+#: the refine's trim radius at the cells' search factor and after one and
+#: two escalations
+WALK_FACTORS = [1.0, 2.0, 4.0]
+
+
+@pytest.mark.parametrize("sf", WALK_FACTORS)
+def test_refine_walk_kernel_bit_identical_to_plain(headline, sf):
+    """8192 queries against the headline's P at 2, 4 and 8 delta: the
+    kernel is its plain walk bit for bit, with the index built here or
+    on the call, and a Q_PAD sentinel row and a NaN transform find
+    nothing."""
+    p, q, pose, delta = headline
+    r = refine.trim_radius(delta, 8, sf)
+    index = k1.grid_index(p, r)
+    before = k1.nearest_within.launches
+    got = k1.nearest_within(pose, q, p, r, index)
+    again = k1.nearest_within(pose, q, p, r)
+    torch.cuda.synchronize()
+    assert k1.nearest_within.launches == before + 2
+    want = k1.nearest_within_plain(pose, q, p, r, index)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert 0.5 * q.shape[0] < int(torch.isfinite(got[:, 3]).sum())
+    odd = q.clone()
+    odd[-3:] = 2.0e17
+    nan = pose.clone()
+    nan[0, 1] = float("nan")
+    for m, qs in ((pose, odd), (nan, q)):
+        got = k1.nearest_within(m, qs, p, r, index)
+        assert torch.equal(got, k1.nearest_within_plain(m, qs, p, r, index))
+    assert torch.isinf(got[:, 3]).all() and not got[:, :3].any()
+
+
+@pytest.mark.parametrize("sf", WALK_FACTORS)
+def test_refine_on_the_card_against_the_brute_force(headline, sf):
+    """refine_transform on the card (the walk) against the same loop
+    with the brute force of the CPU (ops/refine.py::_nearest): the same
+    neighbour on at least 99.9% of the queries the brute force finds
+    within the radius, and the refined transforms within 1e-5. Each ICP
+    iteration is one launch and one count of ``refine_walks``."""
+    from super4pcs_tpu_torch.utils import profiling
+    p, q, pose, delta = headline
+    r = refine.trim_radius(delta, 8, sf)
+    walk = k1.nearest_within(pose, q, p, r)
+    tq = q @ pose[:3, :3].T + pose[:3, 3]
+    idx, d2 = refine._nearest(tq, p)
+    within = d2 <= float(np.float32(r) * np.float32(r))
+    same = (walk[:, :3] == p[idx]).all(1) & within
+    assert int(same.sum()) >= 0.999 * int(within.sum()) > 0
+    before = k1.nearest_within.launches
+    with profiling.call(p.device) as table:
+        got = refine.refine_transform(pose, q, p, delta, start_factor=sf)
+    want = refine._icp(pose, q, refine._radii(delta, 8, sf),
+                       refine._brute(q, p))
+    torch.cuda.synchronize()
+    assert k1.nearest_within.launches == before + 8
+    assert table["refine_walks"] == 8
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5)
+
+
+def _pool_pair():
+    """The first pair of the benchmark's ``scan100k.pair`` pool (its
+    traffic file's pool seed) and the configuration's options and pose
+    gates."""
+    import json
+    import os
+    import sys
+    here = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import generate
+    from reference import lcp as ref
+
+    def load(*parts):
+        with open(os.path.join(here, *parts)) as f:
+            return json.load(f)
+    config = load("configs", "scan100k.json")
+    traffic = load("traffic", "pair.json")
+    call = generate.make_calls(config["data"], dict(traffic, calls=1),
+                               traffic["pool_seed"])[0]
+    opts = s4t.Options(**config["options"],
+                       random_seed=call["random_seed"]).configure_overlap(
+        *config["overlap"])
+    return call["pairs"][0], opts, config["checks"], ref.pose_errors
+
+
+def test_register_with_the_walk_against_the_brute_force(dev, monkeypatch):
+    """A pool pair of the benchmark's scan100k cell through
+    ``api.register``: with the walk, and with the brute force in its
+    place (the refine's neighbour step before the walk), both inside
+    the pose gates, their LCPs within 1/8192; with the walk, 8
+    ``refine_walks`` and 8 launches a refine."""
+    pair, opts, checks, pose_errors = _pool_pair()
+    calls = []
+    real = refine.refine_transform
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    def register():
+        return s4t.register(pair["target"], pair["source"], options=opts,
+                            device=dev)
+
+    monkeypatch.setattr(refine, "refine_transform", counted)
+    before = k1.nearest_within.launches
+    walk = register()
+    refines = len(calls)
+    assert refines >= 1
+    assert walk.stats["spans"]["refine_walks"] == 8 * refines
+    assert k1.nearest_within.launches - before == 8 * refines
+    monkeypatch.setattr(refine, "_walk",
+                        lambda q, p, radius, index: refine._brute(q, p))
+    brute = register()
+    for res in (walk, brute):
+        rot, tr = pose_errors(res.transform, pair["truth"])
+        assert rot <= checks["rot_diff"] and tr <= checks["tr_err"]
+        assert res.score >= opts.terminate_threshold
+    assert abs(walk.score - brute.score) <= 1 / 8192
+    assert brute.stats["spans"]["refine_walks"] == 0

@@ -392,6 +392,7 @@ def test_launch_record_replays_the_captured_increments():
     them back (a capture runs nothing); each replay adds them again."""
     added = {(k1.lcp_min_d2_within, "launches"): 3,
              (k1.lcp_min_d2, "launches"): 0,
+             (k1.nearest_within, "launches"): 0,
              (k2.rowcap_capture, "launches"): 2,
              (k2.rowcap_capture, "captures"): 32,
              (k2.rowcap_capture, "filtered_launches"): 0,

@@ -435,3 +435,31 @@ def test_refine_transform(rng, make_transform):
     np.testing.assert_array_equal(_np(idx), np.asarray(ridx))
     np.testing.assert_allclose(_np(d2), np.asarray(rd2), rtol=1e-5,
                                atol=1e-9)
+
+
+@pytest.mark.parametrize("estimate_scale", [False, True])
+@pytest.mark.parametrize("sf", [1.0, 2.0])
+def test_refine_walk_loop_against_jax(rng, sf, estimate_scale):
+    """The refine as the card runs it, its neighbours from the walk of
+    P's cell index at the trim radius (the plain version, bit for bit
+    the kernel), held directly to the JAX package's refined transform
+    within 1e-4, on test_refine_transform's data (with
+    tests/test_torch_scale.py's scale in similarity mode)."""
+    s = 1.3 if estimate_scale else 1.0
+    p = _cloud(rng, 900)
+    q = (p[:600] / s
+         + rng.normal(scale=0.002, size=(600, 3))).astype(np.float32)
+    m = np.eye(4, dtype=np.float32)
+    ang = 0.03
+    m[:3, :3] = (1.27 if estimate_scale else 1.0) * np.array(
+        [[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0],
+         [0, 0, 1]])
+    m[:3, 3] = [0.01, -0.005, 0.008]
+    ref = jr.refine_transform(jnp.asarray(m), jnp.asarray(q),
+                              jnp.asarray(p), 0.02, iters=6,
+                              start_factor=sf,
+                              estimate_scale=estimate_scale)
+    walk = tr._walk(_t(q), _t(p), tr.trim_radius(0.02, 6, sf), None)
+    got = tr._icp(_t(m), _t(q), tr._radii(0.02, 6, sf), walk,
+                  estimate_scale)
+    np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-4)
