@@ -160,19 +160,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    equal to its one-base call bit for bit (transform, cvalid, quads,
    counts);
 5q. the dispatch layer: on the engines of 5 (rowcap), 5b (filtered),
-   5k (banded), 5i (allpairs), 6 (the recipe, dense) and 5h's coarse
-   phase (similarity dense), a matcher's captured step (a CUDA graph,
-   utils/graphs.py) replayed against the same step launched op by op,
-   every output bit for bit and the same launch counts, and the step's
-   trial function captured alone against its eager call (transform,
-   cvalid, quads, counts); then the recipe, 5e, 5g's sequence and the
-   headline each at steps_per_dispatch=1 and 8 on one seed: the same
-   trials, scores, transforms and ids bit for bit, K = 8 fused, and for
-   each side the search seconds, dispatches, abandoned steps and peak
-   memory, and a step's wall, device busy time, idle share and kernels
-   as the loop of that K enqueues it (outside the search), beside the
-   same step launched op by op and fetched one at a time, as the port
-   ran every step before its dispatch layer;
+   5k (banded), 5i (allpairs), 5r (the XLA route), 5s (similarity
+   rowcap), 6 (the recipe, dense) and 5h's coarse phase (similarity
+   dense), a matcher's captured step (a CUDA graph, utils/graphs.py)
+   replayed against the same step launched op by op, every output bit
+   for bit and the same launch counts, and the step's trial function
+   captured alone against its eager call (transform, cvalid, quads,
+   counts);
 6. the 500-point known-pose recipe on the GPU (dense engine,
    lcp_min_d2_within only);
 7. a headline step's launches (2 capture launches, 3 verify
@@ -1080,146 +1074,9 @@ def _graph_check(label, cls, opts, P, Q):
                 graph_nodes_by_counter=list(by_counter.values()))
 
 
-def _dispatch_steps(m, k: int, first: int, n: int = 8) -> dict:
-    """Steps ``first`` on of matcher ``m`` (initialized) as its search
-    enqueues them, outside the search: at K = 1 through the per-step
-    loop's two steps in flight (``_launch_step`` / ``_fetch_step``), at
-    K = 8 through the fused dispatch's (``_launch_step(i, fused=True)``:
-    a replay of the step and of the body, one small copy a step); at K
-    = 0 launched op by op and fetched one at a time,
-    as the parent of the dispatch layer ran them (``_run_step(i,
-    eager=True)``; a checkout without the layer runs ``_run_step``). The
-    wall of ``n`` steps, then the device time and kernels of ``n`` more
-    under the profiler; per step. With a graph, its kernel nodes (and
-    the body's at K = 8) from CUDA's dump, beside the profiler's count,
-    which misses some of a replay's kernels."""
-    import torch
-    if k == 0 or not hasattr(m, "_launch_step"):
-        def steps(lo):
-            for i in range(lo, lo + n):
-                if hasattr(m, "_launch_step"):
-                    m._run_step(i, eager=True)
-                else:
-                    m._run_step(i)
-    else:
-        def launch(i):
-            return m._launch_step(i, fused=k > 1)
-        fetch = m._fetch_step
-        if k > 1:
-            m._dispatch(1)          # loads the packed state
-
-        def steps(lo):
-            inflight = collections.deque([launch(lo)])
-            for i in range(lo + 1, lo + n):
-                inflight.append(launch(i))
-                fetch(inflight.popleft())
-            fetch(inflight.popleft())
-    steps(first)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps(first + n)
-    torch.cuda.synchronize()
-    wall = 1e3 * (time.perf_counter() - t0) / n
-    evs = _device_events(lambda: steps(first + 2 * n))
-    busy = sum(t for _, t, _ in evs) / n / 1e3
-    out = dict(step_wall_ms=wall, step_busy_ms=busy,
-               idle_share=1.0 - busy / wall, step_kernels=len(evs) / n)
-    if k > 0 and getattr(m, "_graph", None) is not None:
-        graphs = [m._graph] + ([m._body_graph] if k > 1 else [])
-        out["graph_kernel_nodes"] = sum(_graph_kernels(g)[0]
-                                        for g in graphs)
-    return out
-
-
-def _dispatch_runs(label, make, step_case, k):
-    """One path at ``steps_per_dispatch=k``: ``make(k)`` runs it and
-    returns its (matcher, result) pairs (search seconds, trials,
-    dispatches, abandoned steps, peak memory, the registrations); then
-    a matcher of ``step_case`` (class, options, P, Q) at the same K
-    runs steps outside the search (:func:`_dispatch_steps`)."""
-    import torch
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    runs = make(k)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    cls, opts, Pc, Qc = step_case
-    m = cls(opts.replace(steps_per_dispatch=k), device="cuda")
-    m._init(Pc, Qc)
-    prof = _dispatch_steps(m, k, 1000)
-    eager = _dispatch_steps(m, 0, 2000) if k == 1 else None
-    del m
-    search = sum(r.stats["search_seconds"] for _, r in runs)
-    row = dict(
-        k=k, search_s=search, trials=[r.n_trials for _, r in runs],
-        steps=sum(r.n_trials // m_._b_eff for m_, r in runs),
-        score=[r.score for _, r in runs],
-        dispatches=sum(r.stats.get("fused_dispatches", 0) for _, r in runs),
-        steps_abandoned=sum(r.stats.get("steps_abandoned", 0)
-                            for _, r in runs), peak_mib=peak, **prof)
-    if eager is not None:
-        row["eager_step"] = eager
-    _log(f"5q {label} K={k}: search_s={search:.3f} trials={row['trials']} "
-         f"steps={row['steps']} dispatches={row['dispatches']} "
-         f"steps_abandoned={row['steps_abandoned']} peak {peak:.1f} MiB; "
-         f"a step: wall {prof['step_wall_ms']:.2f} ms, busy "
-         f"{prof['step_busy_ms']:.2f} ms (idle share "
-         f"{100 * prof['idle_share']:.0f}%), {prof['step_kernels']:.0f} "
-         f"kernels recorded by the profiler"
-         + (f", {prof['graph_kernel_nodes']} kernel nodes in the graph"
-            if "graph_kernel_nodes" in prof else "")
-         + ("" if eager is None else
-                       f"; launched op by op, one at a time: wall "
-                       f"{eager['step_wall_ms']:.2f} ms, busy "
-                       f"{eager['step_busy_ms']:.2f} ms (idle share "
-                       f"{100 * eager['idle_share']:.0f}%), "
-                       f"{eager['step_kernels']:.0f} kernels"))
-    return runs, row
-
-
-def _dispatch_cases(s4, obj_dir, P, Q):
-    """The four paths of 5q's K = 1 / K = 8 runs: (label, ``make(k)``
-    returning (matcher, result) pairs, the (class, options, P, Q) of a
-    step of the path): the recipe (phase 6's options), 5e's ``-x`` CLI
-    run on its OBJ meshes (the CLI's options and clouds, through
-    Match4PCS), 5g's ``register_sequence`` of bench.py's four synthetic
-    views (its three matchers recorded; a step of its first pair) and
-    the headline."""
-    from super4pcs_tpu_torch import sequence
-    dense = {c[0]: c[1:] for c in _dense_cases(s4, obj_dir)}
-
-    def matcher_run(cls, opts, Pc, Qc):
-        def make(k):
-            m = cls(opts.replace(steps_per_dispatch=k), device="cuda")
-            return [(m, m.compute_transformation(Pc, Qc))]
-        return make
-
-    scans, gts = _sequence_views(_synth_model())
-    seq_opts = _sequence_options(s4).configure_overlap(0.5, 0.6)
-
-    def sequence_run(k):
-        runs = []
-        with _recording(sequence, runs):
-            s4.register_sequence([s4.PointCloud(s) for s in scans],
-                                 seq_opts.replace(steps_per_dispatch=k),
-                                 gt_transforms=gts, device="cuda")
-        return runs
-
-    head = (s4.MatchSuper4PCS, _headline_options(s4), s4.PointCloud(P),
-            s4.PointCloud(Q))
-    return [("recipe", matcher_run(*dense["recipe"]), dense["recipe"]),
-            ("cli-4pcs-mesh", matcher_run(*dense["cli-4pcs-mesh"]),
-             dense["cli-4pcs-mesh"]),
-            ("sequence", sequence_run, dense["sequence"]),
-            ("headline", matcher_run(*head), head)]
-
-
 def _dispatch_paths(s4, obj_dir, P, Q, fP, fQ):
     """Phase 5q: the graphed step against the eager one on each engine
-    (:func:`_graph_check`), then the recipe, 5e, 5g and the headline
-    each at steps_per_dispatch=1 and 8 on one seed: the same trials,
-    scores, transforms and ids bit for bit, and each side's numbers
-    (:func:`_dispatch_runs`). Returns the numbers."""
-    import torch
+    (:func:`_graph_check`). Returns the numbers."""
     opts = _headline_options(s4)
     fopts = (s4.Options(delta=0.01, sample_size=8192,
                         max_normal_difference=20.0, max_color_distance=60.0,
@@ -1229,7 +1086,7 @@ def _dispatch_paths(s4, obj_dir, P, Q, fP, fQ):
     SP, SQ = _scale_pair()
     dense = {c[0]: c for c in _dense_cases(s4, obj_dir)}
     hP, hQ = s4.PointCloud(P), s4.PointCloud(Q)
-    numbers = {"graph": {}, "fused": {}}
+    numbers = {}
     for label, cls, o, Pc, Qc in (
             ("headline", s4.MatchSuper4PCS, opts, hP, hQ),
             ("filtered", s4.MatchSuper4PCS, fopts, fP, fQ),
@@ -1243,25 +1100,7 @@ def _dispatch_paths(s4, obj_dir, P, Q, fP, fQ):
              aopts.replace(pair_engine="rowcap"), s4.PointCloud(SP),
              s4.PointCloud(SQ)),
             dense["recipe"], dense["scale-coarse"]):
-        numbers["graph"][label] = _graph_check(label, cls, o, Pc, Qc)
-    for label, make, step_case in _dispatch_cases(s4, obj_dir, P, Q):
-        (r1, row1), (r8, row8) = (_dispatch_runs(label, make, step_case, k)
-                                  for k in (1, 8))
-        same = len(r1) == len(r8) and all(
-            a.n_trials == b.n_trials and a.score == b.score
-            and _same_bits(a.transform, b.transform)
-            and _same_bits(ma._base_ids, mb._base_ids)
-            and _same_bits(ma._congruent_ids, mb._congruent_ids)
-            for (ma, a), (mb, b) in zip(r1, r8))
-        fused = all(r.stats.get("fused_dispatches", 0) > 0 for _, r in r8)
-        _log(f"5q {label}: K = 8 and K = 1 land the same trials, scores, "
-             f"transforms and ids bit for bit={same}; fused at K = 8="
-             f"{fused}")
-        if not same or not fused:
-            raise SystemExit(f"5q {label}: the fused run differs from the "
-                             f"per-step run, or did not run fused")
-        numbers["fused"][label] = {"K=1": row1, "K=8": row8}
-        torch.cuda.empty_cache()
+        numbers[label] = _graph_check(label, cls, o, Pc, Qc)
     return numbers
 
 
@@ -3317,7 +3156,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         file_numbers["dense-steps"] = _dense_paths(s4, tmp)
         # 5q. the dispatch layer: graphed steps against eager ones on
-        # every engine, fused (K = 8) runs against per-step ones
+        # every engine
         file_numbers["dispatch"] = _dispatch_paths(s4, tmp, P, Q, fP, fQ)
 
     # 6. the 500-point known-pose recipe (dense engine, K1 only: its

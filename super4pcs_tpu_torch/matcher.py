@@ -39,18 +39,13 @@ PyTorch counterpart of ``super4pcs_tpu.matcher``, the re-architecture of
   them against the step's cost model (``step.cost_model``,
   utils/roofline.py, ``stats["phase_roofline"]``).
 
-The dispatch layer (the JAX package's fused K-step dispatch and its
-two steps in flight): on the card every unsharded run captures its step
+The dispatch layer: on the card every unsharded run captures its step
 into a CUDA graph once, off the anytime clock (utils/graphs.py), and
 replays it, with the step's draws drawn eagerly and copied in, so a
-graphed run draws the trials an eager run draws. The per-step loop keeps
-two steps in flight; ``Options.steps_per_dispatch`` (K = 8 at nq <= 1024,
-:func:`resolve_steps_per_dispatch`) runs up to K steps a dispatch with
-the search state packed on the device, adopted and exit-tested there
-after each step, and the host reading one small buffer a step
-(:func:`build_multi_step`, :meth:`Match4PCSBase._fused_anytime_loop`).
-The CPU, a mesh, ``register_batch`` and the phase timing run the step
-eagerly.
+graphed run draws the trials an eager run draws. One anytime loop
+(:meth:`Match4PCSBase._perform_steps`) runs every step on every device,
+size and engine, with two steps in flight. The CPU, a mesh,
+``register_batch`` and the phase timing run the step eagerly.
 
 What the port leaves out, because it exists only for XLA compile time:
 the background escalation compile (escalation here is a synchronous
@@ -187,20 +182,20 @@ def capture_bounds(opts: Options, engine: str, q_pos):
     return None
 
 
-def warm_kind(opts: Options, engine: str, *, fused: bool, refine: bool,
+def warm_kind(opts: Options, engine: str, *, refine: bool,
               batch: bool = False) -> tuple:
     """The kind of a warm-up, as the process's record of warmed kinds
     keys it (``utils.graphs.CaptureContext.warmed``): a batch's step or
     a single pair's, the resolved engine, the capture route (K2, K2x or
-    none), which pair filters are on, similarity mode, the fused
-    dispatch's body, and the refine. One warm of a kind loads what every
-    later step of that kind launches."""
+    none), which pair filters are on, similarity mode and the refine.
+    One warm of a kind loads what every later step of that kind
+    launches."""
     route = ("K2" if uses_capture_kernel(opts, engine)
              else "K2x" if engine == "rowcap" else None)
     filters = (opts.max_normal_difference > 0, opts.max_color_distance > 0,
                opts.max_translation_distance > 0, opts.max_angle > 0)
     return ("batch" if batch else "pair", engine, route, filters,
-            bool(opts.estimate_scale), bool(fused), bool(refine))
+            bool(opts.estimate_scale), bool(refine))
 
 
 def _step_seed(random_seed: int, step_idx: int) -> int:
@@ -769,52 +764,6 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
     return step, (k_pairs, k_quads, n_cands)
 
 
-def resolve_steps_per_dispatch(opts: Options, nq: int,
-                               mesh_size: int = 1) -> int:
-    """Effective fused-dispatch depth (see Options.steps_per_dispatch),
-    the JAX package's rule: ``None`` gives 8 at nq <= 1024, else 1; an
-    explicit value wins, at least 1; always 1 on a mesh and at a search
-    factor other than 1 (the coarse-rank refine path is the host's)."""
-    if mesh_size > 1 or opts.search_delta_factor != 1.0:
-        return 1
-    k = opts.steps_per_dispatch
-    if k is None:
-        k = 8 if nq <= 1024 else 1
-    return max(int(k), 1)
-
-
-#: int64 words of the fused dispatch's packed device state (see
-#: :func:`build_multi_step`): int32 words 0-22 hold ``state_f``'s float32
-#: bits, 23-31 ``state_i``, 32 the continue flag, 33 the best step rank's
-#: float32 bits; int64 words 17-24 the telemetry row, 25 ``k_limit``
-_PACKED_WORDS = 26
-_ROW = slice(17, 25)
-
-
-def pack_fused(state_f, state_i, k_limit: int, cont: bool,
-               best_rank: float = -np.inf) -> np.ndarray:
-    """The packed state of a dispatch's start: ``state_f`` (23,) f32,
-    ``state_i`` (9,) i32, a zero row, ``k_limit``, the continue flag and
-    the best step rank so far."""
-    out = np.zeros(_PACKED_WORDS, np.int64)
-    w = out.view(np.int32)
-    w[0:23] = np.asarray(state_f, np.float32).view(np.int32)
-    w[23:32] = np.asarray(state_i, np.int32)
-    w[32] = int(cont)
-    w[33:34] = np.asarray([best_rank], np.float32).view(np.int32)
-    out[25] = k_limit
-    return out
-
-
-def unpack_fused(packed: np.ndarray):
-    """(state_f (23,) f32, state_i (9,) i32, row (8,) int64, continue,
-    best step rank) of a packed state (arrays are views into
-    ``packed``)."""
-    w = packed.view(np.int32)
-    return (w[0:23].view(np.float32), w[23:32], packed[_ROW],
-            bool(w[32]), float(w[33:34].view(np.float32)[0]))
-
-
 #: the stats counters of a step's telemetry (:func:`telemetry_row`)
 _TELEMETRY = ("pairs_overflow", "quads_overflow", "cell_dropped",
               "q_sampled_out", "n_congruent", "cands_overflow", "n_pairs")
@@ -822,84 +771,15 @@ _TELEMETRY = ("pairs_overflow", "quads_overflow", "cell_dropped",
 
 def telemetry_row(out, k_quads: int) -> tuple:
     """One pair's telemetry of a step, the counters of ``_TELEMETRY`` in
-    order, from its outputs ``out`` (numpy on the host, or tensors on
-    the device: the fused dispatch's body counts with the same sums).
-    The overflow counters are DROPPED-ITEM counts; ``n_pairs`` is the
-    exact pre-cap pair count of both base edges."""
+    order, from its outputs ``out`` on the host. The overflow counters
+    are DROPPED-ITEM counts; ``n_pairs`` is the exact pre-cap pair count
+    of both base edges."""
     counts = out["pair_counts"]
     return (counts[:, 4].sum(),
             (counts[:, 2] - k_quads).clip(min=0).sum(),
             counts[:, 3].sum(), counts[:, 5].sum(),
             out["n_congruent"], out["cands_dropped"],
             counts[:, :2].sum())
-
-
-def build_multi_step(opts: Options, k_quads: int):
-    """The device body of the fused K-step dispatch
-    (``super4pcs_tpu.matcher.build_multi_step``'s loop body and
-    condition): ``body(out, packed)`` runs after each step, on the
-    step's outputs ``out`` (one pair, G = 1) and the packed device
-    state ``packed`` (int64 (26,), :func:`pack_fused`), in place.
-
-    The state is the JAX package's: ``state_f`` (23,) f32 [best_lcp,
-    transform(16), qcentroid1(3), qcentroid2(3)], ``state_i`` (9,) i32
-    [step_counter, base_ids(4), congruent_ids(4)], and the dispatch's
-    telemetry row (steps_done, pairs_overflow, quads_overflow,
-    cell_dropped, q_sampled_out, n_congruent, cands_dropped), int64
-    here (one step's dropped-item counts reach 1e9 at nq = 8192), with
-    the port's n_pairs after it (:func:`telemetry_row`). The best rank
-    (``rank_lcp``) of the counted steps rides along: the per-step loop
-    keeps it for the coarse-search path after an escalation, and a
-    fused run must hand it the same value (the JAX package takes the
-    best LCP there, which can differ from the per-step loop's after a
-    refine).
-
-    A step counts and adopts only while the continue flag is set. The
-    flag is the JAX loop's condition (``steps_done < k_limit``, ``best
-    <= terminate_threshold`` and ``best < 1``) after the previous step;
-    the host enqueues the next step before it reads the flag, so the one
-    step that runs past the exit runs with it clear and changes nothing.
-    The step's winner is adopted when its LCP beats the best (``adopt =
-    cand_lcp > best``). With ``refine_iterations > 0`` an adopting step
-    also clears the flag: the dispatch ends there and the host polishes
-    the new best under the per-step loop's guarded rule (the JAX body
-    polishes on the device; here the refine's cuSOLVER SVDs and its
-    nearest-neighbour search stay out of the step's graph). The
-    threshold compare is in float64, as the host's stop rule is."""
-    term = float(opts.terminate_threshold)
-    polish = opts.refine_iterations > 0
-
-    def body(out, packed):
-        w = packed.view(torch.int32)
-        state_f = w[0:23].view(torch.float32)
-        state_i = w[23:32]
-        row = packed[_ROW]
-        active = w[32] != 0
-        a = active.to(torch.int64)
-        tele = torch.stack([x.to(torch.int64) for x in telemetry_row(
-            {k: v[0] for k, v in out.items()}, k_quads)])
-        row[0:1].add_(a)
-        row[1:].add_(tele * a)
-        rank = w[33:34].view(torch.float32)
-        rank.copy_(torch.where(active, torch.maximum(
-            rank, out["rank_lcp"][0].reshape(1)), rank))
-        step_lcp = out["lcp"][0]
-        adopt = active & (step_lcp > state_f[0])
-        cand_f = torch.cat([step_lcp.reshape(1),
-                            out["transform"][0].reshape(16),
-                            out["qcentroid1"][0], out["qcentroid2"][0]])
-        cand_i = torch.cat([out["base_ids"][0],
-                            out["congruent_ids"][0]]).to(torch.int32)
-        state_f.copy_(torch.where(adopt, cand_f, state_f))
-        state_i[0:1].add_(a.to(torch.int32))
-        state_i[1:].copy_(torch.where(adopt, cand_i, state_i[1:]))
-        best = state_f[0].to(torch.float64)
-        cont = active & (row[0] < packed[25]) & (best <= term) & (best < 1.0)
-        if polish:
-            cont = cont & ~adopt
-        w[32:33].copy_(cont.to(torch.int32).reshape(1))
-
-    return body
 
 
 _STATE_KEYS = ("trial", "best_lcp", "transform", "qcentroid1",
@@ -971,9 +851,9 @@ class Match4PCSBase:
         self.device = torch.device(device)
         self._mesh = mesh
         self._b_eff = options.bases_per_step
-        #: the run's captured step and fused body (card, unsharded), and
-        #: the lease of their memory pool (utils/graphs.py)
-        self._graph = self._body_graph = self._lease = None
+        #: the run's captured step (card, unsharded) and the lease of its
+        #: memory pool (utils/graphs.py)
+        self._graph = self._lease = None
 
     # ------------------------------------------------------------------
     # public API (mirrors ComputeTransformation, ref:hpp:61-86)
@@ -1318,12 +1198,11 @@ class Match4PCSBase:
         process, and every warm over a mesh: one step (on every mesh
         device) and (with refine on) one refine of the current
         transform, their outputs thrown away, and, unsharded, the
-        capture of the step (and of the fused dispatch's body) after an
-        eager run on the capture stream, and one replay
-        (:meth:`_capture`); a counter ``warm_full`` in the span table. A
-        later warm of that kind builds the verify indexes that the step
-        and the refine read and captures alone; a counter
-        ``warm_reused``. The graphs' pool is the device's, lent until the
+        capture of the step after an eager run on the capture stream,
+        and one replay (:meth:`_capture`); a counter ``warm_full`` in the
+        span table. A later warm of that kind builds the verify indexes
+        that the step and the refine read and captures alone; a counter
+        ``warm_reused``. The graph's pool is the device's, lent until the
         registration ends (:meth:`_release_graphs`)."""
         if self.device.type != "cuda":
             return
@@ -1333,7 +1212,6 @@ class Match4PCSBase:
             opts = self._opts_eff()
             kind = warm_kind(
                 opts, resolve_pair_engine(opts, int(self._d_q_pos.shape[0])),
-                fused=self._multi_fn is not None,
                 refine=self._refine_active())
             if kind in ctx.warmed:
                 profiling.count("warm_reused", 1)
@@ -1360,12 +1238,10 @@ class Match4PCSBase:
 
     def _capture(self, prerun: bool = True):
         """Capture this run's step, as ``step.run`` runs it on the
-        step's draws, into a CUDA graph (utils/graphs.py), and with
-        fused dispatch its body (:func:`build_multi_step`) into a second
-        one over the packed state, both in the pool the run leases from
-        the device's capture context; and the pinned host copies that
-        two steps in flight read through. ``prerun``: run each eagerly
-        on the capture stream first (``StepGraph``)."""
+        step's draws, into a CUDA graph (utils/graphs.py), in the pool
+        the run leases from the device's capture context; and the pinned
+        host copies that two steps in flight read through. ``prerun``:
+        run it eagerly on the capture stream first (``StepGraph``)."""
         dev = self.device
         diam = self._max_base_diameter
         args = self._step_args()
@@ -1379,22 +1255,9 @@ class Match4PCSBase:
                                     prerun=prerun)
         self._step_host = HostCopies(
             {k: v[0] for k, v in self._graph.outputs.items()}, dev)
-        if self._multi_fn is not None:
-            self._packed = torch.zeros(_PACKED_WORDS, dtype=torch.int64,
-                                       device=dev)
-            self._stage = torch.zeros(_PACKED_WORDS, dtype=torch.int64,
-                                      pin_memory=True)
-            self._stage_read = torch.cuda.Event()
-            body, out, packed = (self._multi_fn, self._graph.outputs,
-                                 self._packed)
-            with profiling.span("capture"):
-                self._body_graph = StepGraph(lambda: body(out, packed),
-                                             device=dev, pool=pool,
-                                             prerun=prerun)
-            self._fused_host = HostCopies({"packed": packed}, dev)
 
     def _release_graphs(self):
-        """Drop the run's graphs and its lease of their pool, which goes
+        """Drop the run's graph and its lease of its pool, which goes
         back to the device's free list once no graph captured into it is
         left: at an escalation's rebuild, and at the end of the
         registration (the final refine and ``finish`` replay nothing)."""
@@ -1402,7 +1265,7 @@ class Match4PCSBase:
             # a replay of the old graph may still run: let it end before
             # its memory goes back to the pool
             torch.cuda.synchronize(self.device)
-        self._graph = self._body_graph = self._lease = None
+        self._graph = self._lease = None
 
     # ------------------------------------------------------------------
     # device step: B complete RANSAC trials + batched verify
@@ -1432,13 +1295,6 @@ class Match4PCSBase:
         self._step_fn, caps = build_step(opts, nq, self._cone_mode,
                                          self._band_index)
         self._k_pairs, self._k_quads, self._n_cands = caps
-        # fused dispatch (see build_multi_step); the per-step loop runs
-        # the escalated steps and the phase timing
-        self._fused_k = resolve_steps_per_dispatch(
-            opts, nq, mesh.size if mesh is not None else 1)
-        self._multi_fn = (build_multi_step(opts, self._k_quads)
-                          if self._fused_k > 1 else None)
-        self._packed = None
         if mesh is None:
             return
         from .parallel.sharded import sharded_step
@@ -1495,20 +1351,17 @@ class Match4PCSBase:
                                          step_idx))
         return self._step_fn.draw(self._gen, 1, int(self._d_p_pos.shape[0]))
 
-    def _launch_step(self, step_idx: int, eager: bool = False,
-                     fused: bool = False):
+    def _launch_step(self, step_idx: int, eager: bool = False):
         """Enqueue device step ``step_idx``; :meth:`_fetch_step` turns
-        the returned handle into the step's outputs on the host, or with
-        ``fused`` into the packed state (``{"packed": ...}``) after the
-        fused dispatch's body has run on them (:func:`build_multi_step`).
-        On the card (unsharded) the step is a replay of the run's
-        captured graph (and of the body's), its outputs copied into one
-        of two pinned host buffers behind an event, so the host can
-        enqueue the next step before it reads this one. On the CPU, over
-        a mesh (its draws drawn once, on the mesh's first device, each
-        device running its slice of the bases) and with ``eager`` the
-        handle runs the step when it is fetched: no device runs ahead of
-        the host there, and a step abandoned unfetched costs nothing.
+        the returned handle into the step's outputs on the host. On the
+        card (unsharded) the step is a replay of the run's captured
+        graph, its outputs copied into one of two pinned host buffers
+        behind an event, so the host can enqueue the next step before it
+        reads this one. On the CPU, over a mesh (its draws drawn once,
+        on the mesh's first device, each device running its slice of the
+        bases) and with ``eager`` the handle runs the step when it is
+        fetched: no device runs ahead of the host there, and a step
+        abandoned unfetched costs nothing.
 
         Each step that runs is a span "step" (utils/profiling.py), a
         device span but over a mesh."""
@@ -1526,17 +1379,10 @@ class Match4PCSBase:
             def run():
                 with profiling.span("step", self.device):
                     out = step.run(draws, self._max_base_diameter, *args)
-                    if fused:
-                        self._multi_fn(out, self._packed)
-                        return {"packed":
-                                self._packed.cpu().numpy().copy()}
                     return {k: v[0].cpu().numpy() for k, v in out.items()}
             return run
         with profiling.span("step", self.device):
             out = self._graph(*self._draws(step_idx))
-            if fused:
-                self._body_graph()
-                return self._fused_host.put({"packed": self._packed})
             return self._step_host.put({k: v[0] for k, v in out.items()})
 
     @staticmethod
@@ -1569,15 +1415,6 @@ class Match4PCSBase:
                 self._measure_phases()
 
         t0 = time.perf_counter()
-        if self._multi_fn is not None:
-            warm = self._fused_anytime_loop(visitor, needs_global, t0)
-            if warm is None:
-                self._stats["search_seconds"] = time.perf_counter() - t0
-                return
-            # the trial estimate ran out below the threshold and the
-            # search escalated: its steps run in the per-step loop
-            t0 += warm
-
         step_idx = self._trial // b   # continue the stream on resume
         # Predictive deadline guard: an EMA of step latency; no step is
         # enqueued once the remaining budget cannot fit it.
@@ -1621,7 +1458,7 @@ class Match4PCSBase:
                 # a sharded step's lazily gathered table (see
                 # Options.sharded_gather_telemetry)
                 out["pair_counts"] = out["pair_counts"].cpu().numpy()
-            self._count(1, telemetry_row(out, self._k_quads))
+            self._count(telemetry_row(out, self._k_quads))
 
             step_rank = float(out["rank_lcp"])
             if step_lcp > self._best_lcp:
@@ -1673,20 +1510,19 @@ class Match4PCSBase:
         # ref:match4pcsBase.hpp:77-83)
         self._stats["search_seconds"] = time.perf_counter() - t0
 
-    def _count(self, steps: int, row):
-        """Count ``steps`` steps of this run and their summed telemetry
-        ``row`` (:func:`telemetry_row`)."""
-        self._trial += steps * self._b_eff
+    def _count(self, row):
+        """Count one step of this run and its telemetry ``row``
+        (:func:`telemetry_row`)."""
+        self._trial += self._b_eff
         for key, v in zip(_TELEMETRY, row):
             self._stats[key] += int(v)
 
     def _progress(self, visitor, needs_global, t0):
-        """After a step (or a fused dispatch): the progress callback,
-        then the stop rules (ref:hpp:255). Returns "stop", "escalate"
-        (the trial estimate ran out below the threshold and the search
-        escalates: configured, and more than 5% of the wall budget left)
-        or None (go on; when the estimate ran out, only under
-        use_full_time_budget)."""
+        """After a step: the progress callback, then the stop rules
+        (ref:hpp:255). Returns "stop", "escalate" (the trial estimate ran
+        out below the threshold and the search escalates: configured,
+        and more than 5% of the wall budget left) or None (go on; when
+        the estimate ran out, only under use_full_time_budget)."""
         opts = self.options
         fraction_try = self._trial / self._trial_budget
         fraction_time = (time.perf_counter() - t0) / opts.max_time_seconds
@@ -1705,126 +1541,6 @@ class Match4PCSBase:
             if not opts.use_full_time_budget:
                 return "stop"
         return None
-
-    def _fused_state(self):
-        """The packed fused-dispatch state of the host best-so-far, the
-        JAX package's layout (see :func:`build_multi_step`): state_f
-        (23,) f32 = [best_lcp, transform(16), qcentroid1(3),
-        qcentroid2(3)], state_i (9,) i32 = [step_counter, base_ids(4),
-        congruent_ids(4)]. Loaded at every dispatch's start, so that a
-        refine between dispatches is seen."""
-        state_f = np.concatenate([
-            np.asarray([self._best_lcp], np.float32),
-            np.asarray(self._transform, np.float32).reshape(16),
-            np.asarray(self._qcentroid1, np.float32),
-            np.asarray(self._qcentroid2, np.float32)])
-        state_i = np.concatenate([
-            np.asarray([self._trial // self._b_eff], np.int32),
-            np.asarray(self._base_ids, np.int32),
-            np.asarray(self._congruent_ids, np.int32)])
-        return state_f, state_i
-
-    def _apply_fused_state(self, host_f, host_i):
-        """Unpack a fetched fused state into the host best-so-far."""
-        self._best_lcp = float(host_f[0])
-        self._transform = np.asarray(host_f[1:17],
-                                     np.float32).reshape(4, 4)
-        self._qcentroid1 = np.asarray(host_f[17:20], np.float32)
-        self._qcentroid2 = np.asarray(host_f[20:23], np.float32)
-        self._base_ids = np.asarray(host_i[1:5], np.int64)
-        self._congruent_ids = np.asarray(host_i[5:9], np.int64)
-
-    def _dispatch(self, k_limit: int):
-        """One fused dispatch: up to ``k_limit`` steps from the host
-        best-so-far, each adopted and exit-tested on the device; the
-        host enqueues a step before it reads the previous one's continue
-        flag, so at most one step runs past the exit (it adopts and
-        counts nothing; ``stats["steps_abandoned"]``). Returns
-        (state_f, state_i, row, best step rank) after the dispatch's
-        last counted step."""
-        state_f, state_i = self._fused_state()
-        best = float(state_f[0])
-        cont = (k_limit > 0 and best <= self.options.terminate_threshold
-                and best < 1.0)
-        packed = pack_fused(state_f, state_i, k_limit, cont,
-                            self._best_rank)
-        if self._graph is None:
-            if self._packed is None:
-                self._packed = torch.zeros(_PACKED_WORDS,
-                                           dtype=torch.int64)
-            self._packed.copy_(torch.from_numpy(packed))
-        else:
-            # the last dispatch's copy has read the stage
-            self._stage_read.synchronize()
-            self._stage.numpy()[:] = packed
-            with torch.cuda.device(self.device):
-                self._packed.copy_(self._stage, non_blocking=True)
-                self._stage_read.record(
-                    torch.cuda.current_stream(self.device))
-        step0 = int(state_i[0])
-        snap = packed
-        if cont:
-            queue = collections.deque([self._launch_step(step0,
-                                                         fused=True)])
-            launched = 1
-            while queue:
-                if launched < k_limit:
-                    queue.append(self._launch_step(step0 + launched,
-                                                   fused=True))
-                    launched += 1
-                snap = self._fetch_step(queue.popleft())["packed"]
-                if not unpack_fused(snap)[3]:
-                    break
-            self._stats["steps_abandoned"] += len(queue)
-        state_f, state_i, row, _, rank = unpack_fused(snap)
-        return state_f, state_i, row, rank
-
-    def _fused_anytime_loop(self, visitor, needs_global, t0):
-        """Anytime loop over fused dispatches of up to ``_fused_k``
-        steps (the JAX package's ``_fused_anytime_loop``): the wall
-        clock is checked between dispatches, ``k_limit`` is clipped to
-        the trial estimate, and the visitor sees at most one improvement
-        (and one progress call) per dispatch. The step indexes are the
-        per-step loop's, so a fused run explores the same trials in the
-        same order and lands the same registration. With refine on, a
-        dispatch ends at an improving step and the new best gets the
-        per-step loop's guarded refine here.
-
-        Returns None when the search is over (a stop rule fired, or the
-        trial estimate ran out and the search does not escalate), else
-        the off-clock seconds of the escalation it made, after which the
-        per-step loop runs the escalated steps."""
-        opts = self.options
-        b = self._b_eff
-        # per-step trial-budget granularity, matching the per-step loop:
-        # steps allowed before fraction_try >= 0.99
-        steps_total = max(int(math.ceil(0.99 * self._trial_budget / b)),
-                          1)
-        self._stats.setdefault("fused_dispatches", 0)
-        while True:
-            steps_done = self._trial // b
-            if opts.use_full_time_budget:
-                k_lim = self._fused_k
-            else:
-                k_lim = max(1, min(self._fused_k,
-                                   steps_total - steps_done))
-            host_f, host_i, row, rank = self._dispatch(k_lim)
-            self._stats["fused_dispatches"] += 1
-            self._count(int(row[0]), row[1:])
-
-            if float(host_f[0]) > self._best_lcp:
-                self._apply_fused_state(host_f, host_i)
-                if self._refine_active() and self._best_lcp < 1.0:
-                    self._maybe_refine()
-                visitor(-1.0, self._best_lcp,
-                        self._visitor_transform(needs_global))
-            self._best_rank = max(self._best_rank, rank)
-
-            decision = self._progress(visitor, needs_global, t0)
-            if decision == "stop":
-                return None
-            if decision == "escalate":
-                return self._escalate()
 
     def _esc_next_factor(self) -> float:
         """The next escalation rung's search factor

@@ -210,17 +210,6 @@ class Options:
     #: Q / P subsample targets of the coarse ranking stage.
     coarse_q: int = 64
     coarse_p: int = 2048
-    #: Fused multi-step dispatch depth: up to K anytime steps per
-    #: dispatch, the search state packed on the device and the exit
-    #: tested there after each step, the host checking the wall clock
-    #: and calling the visitor between dispatches (improvements coalesce
-    #: to one callback a dispatch). ``None`` gives 8 at nq <= 1024 and 1
-    #: above; any value gives 1 on a mesh and at search_delta_factor != 1
-    #: (matcher.resolve_steps_per_dispatch). A fused run explores the
-    #: trials of an unfused one, in the same order, and lands the same
-    #: registration. On the card every step, fused or not, is a replay
-    #: of the run's captured CUDA graph.
-    steps_per_dispatch: Optional[int] = None
     #: Pin the sampled-P point count to exactly this value (truncating
     #: by random choice / repeat-padding as needed). Repeat-padding is
     #: exact (duplicate P points never change a min-distance);

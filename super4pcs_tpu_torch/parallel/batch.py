@@ -297,8 +297,7 @@ class BatchRun:
         (``warm_reused``)."""
         opts, refine_on = self.opts, self.opts.refine_iterations > 0
         ctx = graphs.context(self.dev) if self.mesh.size == 1 else None
-        kind = warm_kind(opts, self.engine, fused=False, refine=refine_on,
-                         batch=True)
+        kind = warm_kind(opts, self.engine, refine=refine_on, batch=True)
         if ctx is not None and kind in ctx.warmed:
             profiling.count("warm_reused", 1)
             for sh in self.shards:

@@ -3,11 +3,11 @@
 On the card one step is ~800-1000 launches (torch ops and the two
 hand-written kernels), and one host thread issuing them takes longer
 than the card takes to run them at most of the port's sizes (PERF.md,
-section 5). The JAX package answers the same overhead with its fused
-K-step dispatch (``super4pcs_tpu.matcher.build_multi_step``); the port
-captures the step once per run, as ``step.run`` runs it, and replays the
-capture: one launch a step, with the step's inputs and outputs at fixed
-addresses.
+section 5). The port captures the step once per run, as ``step.run``
+runs it, and its one anytime loop replays the capture: one launch a
+step, with the step's inputs and outputs at fixed addresses. (The JAX
+package answers the same overhead with its fused K-step dispatch,
+which the port does not have.)
 
 :class:`StepGraph` holds one captured call. The kernel wrappers count
 their launches in plain Python integers, registered here by their
@@ -87,10 +87,9 @@ class StepGraph:
     (``self.inputs``), and a call copies its arguments into those first.
     ``fn`` returns a tensor, or a tuple or dict of tensors: ``outputs``,
     which every replay overwrites in place. ``pool``: the
-    :class:`PoolLease` of the memory pool shared with the other graphs
-    of a run, which replay in turn on one stream; the graph holds it, so
-    the pool goes back to the free list only once no graph captured into
-    it is left. A call enqueues on ``device``'s current stream, whichever
+    :class:`PoolLease` of the memory pool the run leases; the graph
+    holds it, so the pool goes back to the free list only once no graph
+    captured into it is left. A call enqueues on ``device``'s current stream, whichever
     card is current.
 
     The capture runs on ``device``'s capture stream (:func:`context`).
@@ -104,7 +103,7 @@ class StepGraph:
     the CPU).
     """
 
-    def __init__(self, fn, inputs=(), *, device, pool=None, prerun=True):
+    def __init__(self, fn, inputs, *, device, pool=None, prerun=True):
         self.device = device = torch.device(device)
         self.pool = pool
         self.inputs = tuple(t.clone() for t in inputs)

@@ -13,19 +13,9 @@ match4pcsBase.h:73-76, hpp:232-252, hpp:458-465): a callable
 ``needs_global_transformation()`` selects whether the visitor receives
 the centered-frame transform or the recomposed original-frame one.
 
-Fused-dispatch granularity (Options.steps_per_dispatch > 1, by default
-at nq <= 1024): improvement callbacks COALESCE. The device runs up to K
-anytime steps per dispatch and the host observes the best-so-far only
-at each dispatch's end, so the visitor sees at most one improvement
-(after the guarded refine of the new best) and one progress call per
-dispatch, each a value the per-step stream also reaches. The result is
-unchanged (the same trials, adopt and refine rules, in the same order).
-The coarse-search rank path (search_delta_factor > 1) is per-step only:
-fused dispatch is off there (matcher.resolve_steps_per_dispatch).
-Pinned by tests/test_torch_dispatch.py, as the JAX package's
-tests/test_matcher.py::test_fused_dispatch_visitor_contract pins it.
-
-A copy of ``super4pcs_tpu.visitor``.
+A copy of ``super4pcs_tpu.visitor``, less its fused-dispatch
+granularity: the port's one anytime loop calls the visitor once a step
+at every size.
 """
 
 from __future__ import annotations

@@ -827,31 +827,12 @@ def _small_search(refine, n=80):
     return opts, s4t.PointCloud(pos), s4t.PointCloud(q)
 
 
-def _searches(opts, P, Q, device, ks=(8, 1)):
-    runs = []
-    for k in ks:
-        m = s4t.MatchSuper4PCS(opts.replace(steps_per_dispatch=k),
-                               device=device)
-        runs.append((m, m.compute_transformation(P, Q)))
-    return runs
-
-
 def _same_search(a, b):
     (ma, ra), (mb, rb) = a, b
     assert ra.n_trials == rb.n_trials and ra.score == rb.score
     np.testing.assert_array_equal(ra.transform, rb.transform)
     np.testing.assert_array_equal(ma._base_ids, mb._base_ids)
     np.testing.assert_array_equal(ma._congruent_ids, mb._congruent_ids)
-
-
-@pytest.mark.parametrize("refine", [0, 8])
-def test_fused_run_equals_per_step_run_on_the_card(dev, refine):
-    """tests/test_torch_dispatch.py's 80-point search on the card: the
-    fused run (K = 8, graphed step and body) and the per-step run (K =
-    1, two steps in flight) land the same registration bit for bit."""
-    fused, plain = _searches(*_small_search(refine), dev)
-    assert fused[1].stats["fused_dispatches"] > 1
-    _same_search(fused, plain)
 
 
 @pytest.fixture
@@ -866,18 +847,15 @@ def fresh(dev):
 
 
 @pytest.mark.parametrize("warmed", [False, True])
-@pytest.mark.parametrize("k", [8, 1])
-def test_span_table_on_the_card(dev, fresh, k, warmed):
+def test_span_table_on_the_card(dev, fresh, warmed):
     """tests/test_torch_dispatch.py's 80-point search on the card: its
     span table has device seconds on the search's steps and on every
-    refine, a capture span a graph built (the step's, and with fused
-    dispatch the body's), no child's host seconds above its parent's,
-    and the device allocations of the call. The first registration of
-    its kind in the process warms fully (a warm-up step, ``warm_full``);
-    once one has (``warmed``), the next captures without one
-    (``warm_reused``)."""
+    refine, one capture span (the step's graph), no child's host seconds
+    above its parent's, and the device allocations of the call. The
+    first registration of its kind in the process warms fully (a warm-up
+    step, ``warm_full``); once one has (``warmed``), the next captures
+    without one (``warm_reused``)."""
     opts, P, Q = _small_search(8)
-    opts = opts.replace(steps_per_dispatch=k)
     if warmed:
         s4t.MatchSuper4PCS(opts, device=dev).compute_transformation(P, Q)
     m = s4t.MatchSuper4PCS(opts, device=dev)
@@ -896,7 +874,7 @@ def test_span_table_on_the_card(dev, fresh, k, warmed):
                if path.rpartition("/")[2] == "refine"]
     assert len(refines) >= 2
     assert all(row["device_s"] > 0 for row in refines)
-    assert spans["setup/warm/capture"]["count"] == 1 + (k > 1)
+    assert spans["setup/warm/capture"]["count"] == 1
     assert table["device_allocs"] >= 0 and table["index_builds"] >= 1
     for path, row in spans.items():
         prefix = "" if path == "call" else path
@@ -949,8 +927,7 @@ def test_an_escalation_warms_once_per_process(dev, fresh):
     alone, allocate nothing on the card and land the first's
     registration bit for bit."""
     opts, P, Q = _small_search(8, n=60)
-    opts = opts.replace(max_pairs=512, search_escalation_stages=1,
-                        steps_per_dispatch=1)
+    opts = opts.replace(max_pairs=512, search_escalation_stages=1)
     a1 = _register_on(dev, opts, P, Q)
     a2 = _register_on(dev, opts, P, Q)
     for _, res in (a1, a2):
@@ -1010,17 +987,15 @@ def test_two_live_matchers_never_share_a_pool(dev):
 def test_a_matcher_on_a_card_that_is_not_current(dev):
     """A matcher on the last visible card while cuda:0 is the current
     one: its replayed steps (their host copies behind an event on its
-    own card's stream) equal its steps launched op by op, and its fused
-    and per-step searches (two steps in flight) equal those on cuda:0,
-    bit for bit."""
+    own card's stream) equal its steps launched op by op, and its search
+    (two steps in flight) equals that on cuda:0, bit for bit."""
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         pytest.skip("needs two CUDA cards")
     last = torch.device(f"cuda:{n_cards - 1}")
     torch.cuda.set_device(0)
     opts, P, Q = _small_search(8)
-    m = s4t.MatchSuper4PCS(opts.replace(bases_per_step=64,
-                                        steps_per_dispatch=1), device=last)
+    m = s4t.MatchSuper4PCS(opts.replace(bases_per_step=64), device=last)
     m._init(P, Q)
     assert m._graph is not None
     for i in range(4):
@@ -1029,9 +1004,7 @@ def test_a_matcher_on_a_card_that_is_not_current(dev):
         for k in e:
             assert g[k].tobytes() == e[k].tobytes(), (i, k)
     assert torch.cuda.current_device() == 0
-    for here, there in zip(_searches(opts, P, Q, last),
-                           _searches(opts, P, Q, dev)):
-        _same_search(here, there)
+    _same_search(_register_on(last, opts, P, Q), _register_on(dev, opts, P, Q))
 
 
 _LAYOUT_CFGS = {

@@ -126,15 +126,14 @@ def test_a_pool_keeps_its_last_graph_until_the_next_capture():
 def test_the_warmed_record_is_the_contexts_own():
     fakes = _Fakes()
     one, two = fakes.context(), fakes.context()
-    kind = tmatcher.warm_kind(s4t.Options(), "rowcap", fused=False,
-                              refine=True)
+    kind = tmatcher.warm_kind(s4t.Options(), "rowcap", refine=True)
     one.warmed.add(kind)
     assert kind in one.warmed and kind not in two.warmed
 
 
-def _kind(engine="rowcap", fused=False, refine=True, batch=False, **kw):
-    return tmatcher.warm_kind(s4t.Options(**kw), engine, fused=fused,
-                              refine=refine, batch=batch)
+def _kind(engine="rowcap", refine=True, batch=False, **kw):
+    return tmatcher.warm_kind(s4t.Options(**kw), engine, refine=refine,
+                              batch=batch)
 
 
 @pytest.mark.parametrize("other", [
@@ -142,8 +141,7 @@ def _kind(engine="rowcap", fused=False, refine=True, batch=False, **kw):
     dict(rowcap_kernel="xla"),                      # K2x, not K2
     dict(max_normal_difference=20.0), dict(max_color_distance=60.0),
     dict(max_translation_distance=1.0), dict(max_angle=80.0),
-    dict(estimate_scale=True), dict(refine=False), dict(fused=True),
-    dict(batch=True)])
+    dict(estimate_scale=True), dict(refine=False), dict(batch=True)])
 def test_the_warm_kind_separates(other):
     assert _kind(**other) != _kind()
 
