@@ -42,6 +42,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    radius; its time, pair tests a query, bound and plain time, the
    brute force's time, and a whole refine with the walk and with the
    brute force, their transforms within 1e-5;
+3d. KJ (the join kernel, kernels/join.py::grid_join) on the joins of a
+   step over the headline's samples, T 16 (one pair) and T 64 (four
+   pairs, a step of 5j) at the search factor 1 and 2 (w 2 and 3): its
+   outputs bit for bit the plain join's (the sort route), its device
+   time and the plain join's, each kernel's share, its bound (the
+   table hash and the second table's mask read once, the quads
+   written once, at the memory rate), and the wall of both;
 4. K2 (band capture) against its plain version at n = 8192,
    row_cap = 160, edge 0 with the join hash: cols/rc/h bit-identical,
    then the same with tile-pair rejection on (the one-thread-per-row
@@ -194,6 +201,8 @@ before it and read just after (5n's in each of its processes, summed).
 With ``--scale-only`` it runs phases 1-2 and 5h-5i alone, so that 5h is
 the first registration in its process; with ``--dispatch-only``, phases
 1-2 and 5q; with ``--refine-only``, phases 1-2, 3c and 5; with
+``--join-only``, phases 1-2, 3d and 5, then the headline's step split
+(``Options.phase_timing``) and its graph's join kernels; with
 ``--xla-only``, phases 1-2, 4c, 5r and 5s (and, with
 ``--seeds``, 5r once per seed: search seconds, steps, trials, LCP).
 
@@ -205,6 +214,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -238,6 +248,12 @@ KR_NAME = "refine_nearest_within_kernel"
 KR_FACTORS = (1.0, 2.0, 4.0)
 K2_NAME = "rowcap_capture_kernel"
 K2_NAMES = (K2_NAME, "rowcap_prep_kernel")
+#: the join kernel's kernels share this prefix; its last one, once a
+#: launch
+KJ_PREFIX = "join_"
+KJ_NAME = "join_emit_kernel"
+#: the search factors of 3d: the cells' (w 2) and one escalation's (w 3)
+KJ_FACTORS = (1.0, 2.0)
 #: the previous, one-thread-per-row capture kernel, ms per launch on an
 #: NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table), printed
 #: beside the current kernel's times: the headline base (rejection on,
@@ -507,6 +523,7 @@ def _filtered_clouds(P, Q, s4):
 def _counters() -> dict:
     """Every kernel wrapper's launch counters by name: (object,
     attribute)."""
+    from super4pcs_tpu_torch.kernels import join as kj
     from super4pcs_tpu_torch.kernels import lcp as k1
     from super4pcs_tpu_torch.kernels import rowcap as k2
     from super4pcs_tpu_torch.kernels import rowcap_layout as k2x
@@ -518,7 +535,8 @@ def _counters() -> dict:
                                         "filtered_launches"),
             "rowcap_layout": (k2x.rowcap_layout, "launches"),
             "rowcap_layout_captures": (k2x.rowcap_layout, "captures"),
-            "nearest_within": (k1.nearest_within, "launches")}
+            "nearest_within": (k1.nearest_within, "launches"),
+            "grid_join": (kj.grid_join, "launches")}
 
 
 def _run_path(label, fn, counters):
@@ -632,6 +650,135 @@ def _refine_walk_rows(p_pos, q_pos, delta, dev) -> dict:
             refine_ms=refine_ms, refine_brute_force_ms=refine_brute_ms,
             refine_max_abs_err=err)
     return rows
+
+
+def _step_joins(s4, p_pos, q_pos, opts, sets: int, factor: float, dev):
+    """The (args, kwargs) of the grid join a rowcap step makes over
+    ``sets`` copies of the headline's samples (T = 16 x sets) at the
+    search factor ``factor``, recorded from one step of the step
+    function the matcher builds (``matcher.build_step``)."""
+    import torch
+    from super4pcs_tpu_torch import matcher
+    from super4pcs_tpu_torch.kernels import rowcap as k2
+    from super4pcs_tpu_torch.ops import congruent
+    from super4pcs_tpu_torch.ops import lcp as ops_lcp
+    o = opts.replace(search_delta_factor=factor)
+    step, _ = matcher.build_step(o, q_pos.shape[0], o.cone_cos_tolerance)
+    pp = p_pos[None].expand(sets, -1, -1).contiguous()
+    qq = q_pos[None].expand(sets, -1, -1).contiguous()
+    z = torch.zeros_like(pp)
+    zq = torch.zeros_like(qq)
+    diam = torch.full((sets,), float(2.0 * torch.linalg.vector_norm(
+        q_pos, dim=1).max()), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    seen = []
+    real = congruent.find_congruent_quads_grid
+
+    def recording(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    congruent.find_congruent_quads_grid = recording
+    try:
+        step(gen, diam, pp, z, z - 1, qq, zq, zq - 1, k2.reject_bounds(qq),
+             ops_lcp.VerifyIndex(pp))
+    finally:
+        congruent.find_congruent_quads_grid = real
+    return seen[0]
+
+
+def _join_rows(s4, p_pos, q_pos, opts, dev) -> dict:
+    """Phase 3d: KJ (``kernels/join.py::grid_join``) on the joins of a
+    rowcap step over the headline's samples, T 16 and T 64, at each
+    search factor of ``KJ_FACTORS``: bit for bit the plain join (the
+    sort route), the device time of both (every kernel of a call,
+    profiler), KJ's kernels' shares, the wall of both (CUDA events),
+    and the bound: the table hash and the second table's mask read
+    once and the quads written once, at the memory rate. Returns the
+    rows by shape."""
+    import torch
+    from super4pcs_tpu_torch.kernels import join as kj
+    from super4pcs_tpu_torch.ops import congruent
+    rows = {}
+    for sets in (1, 4):
+        for sf in KJ_FACTORS:
+            args, kwargs = _step_joins(s4, p_pos, q_pos, opts, sets, sf, dev)
+
+            def kernel():
+                return congruent.find_congruent_quads_grid(*args, **kwargs)
+
+            def plain():
+                takes = kj.takes
+                kj.takes = lambda *a: False
+                try:
+                    return congruent.find_congruent_quads_grid(*args,
+                                                               **kwargs)
+                finally:
+                    kj.takes = takes
+            before = kj.grid_join.launches
+            got = kernel()
+            launched = kj.grid_join.launches - before
+            want = plain()
+            torch.cuda.synchronize()
+            same = all(_same_bits(a, b) for a, b in zip(got, want))
+            nt, k1 = kwargs["table_hash"].shape
+            k2_ = args[4].shape[1]
+            cap = args[10]
+            w = congruent.probe_window(args[7], kwargs["cell_size"])
+            evs = _device_events(lambda: [kernel() for _ in range(10)])
+            by_kernel = collections.Counter()
+            for name, t, _ in evs:
+                key = re.search(KJ_PREFIX + r"\w+|Memset", name)
+                by_kernel[key.group(0) if key else name[:48]] += t / 10e3
+            ms = sum(by_kernel.values())
+            plain_ms = _device_ms(plain, reps=3)
+            wall_ms = _cuda_ms(kernel, reps=10)
+            plain_wall_ms = _cuda_ms(plain, reps=3)
+            # the hash (4 bytes a slot) and the mask (1) read once, the
+            # quads (32 bytes), their mask and the counters written once
+            bound_ms, bound_by = _bound(
+                0.0, nt * (5.0 * k1 + 1.0 * k2_ + 33.0 * cap + 24.0))
+            label = f"T={nt} w={w}"
+            _log(f"KJ join {label}: k1={k1} probes/trial="
+                 f"{min(kwargs['q_budget'] or 8192, k2_) * w ** 3} "
+                 f"budget={kwargs['probe_budget']} launches={launched} "
+                 f"equal to plain={same} quads={int(want[2].sum())} "
+                 f"dropped={int(want[3].sum())}; kernel {ms:.4f} ms "
+                 f"(wall {wall_ms:.4f}) plain {plain_ms:.4f} ms (wall "
+                 f"{plain_wall_ms:.4f}) bound {bound_ms:.5f} ms "
+                 f"({bound_by}); by kernel: " + ", ".join(
+                     f"{k} {v:.4f}" for k, v in by_kernel.most_common()))
+            if not (same and launched == 1):
+                raise SystemExit(f"KJ at {label} disagrees with the plain "
+                                 f"join or did not launch once")
+            rows[label] = dict(
+                shape=f"T={nt} nq={q_pos.shape[0]} k1={k1} w={w}", ms=ms,
+                plain_ms=plain_ms, wall_ms=wall_ms,
+                plain_wall_ms=plain_wall_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                by_kernel=dict(by_kernel))
+            del got, want
+    return rows
+
+
+def _step_split(P, Q, opts, s4) -> dict:
+    """The headline registration with ``Options.phase_timing``: its
+    step's phases (``stats["phase_seconds"]``, ms) and the kernel nodes
+    of its captured step, the join kernel's among them."""
+    m = s4.MatchSuper4PCS(opts.replace(phase_timing=True), device="cuda")
+    res = m.compute_transformation(s4.PointCloud(P), s4.PointCloud(Q))
+    split = {k: 1e3 * v for k, v in res.stats["phase_seconds"].items()}
+    m._capture()
+    with tempfile.TemporaryDirectory() as tmp:
+        nodes = m._graph.kernel_nodes(os.path.join(tmp, "graph.dot"))
+    join_nodes = sum(KJ_PREFIX in n for n in nodes)
+    _log(f"headline step split (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items())
+         + f"; graph kernel nodes {len(nodes)}, of the join kernel "
+         f"{join_nodes} ({sum(KJ_NAME in n for n in nodes)} launch)")
+    return dict(phase_ms=split, graph_kernel_nodes=len(nodes),
+                join_kernel_nodes=join_nodes)
 
 
 def _headline_path(P, Q, opts, s4, counters, by_path, report):
@@ -982,6 +1129,7 @@ def _graph_kernels(graph):
     that counter's kernel}) for the kernels the port's launch counters
     count. Exact, where the profiler can drop records of a replay's
     kernels."""
+    from super4pcs_tpu_torch.kernels import join as kj
     from super4pcs_tpu_torch.kernels import lcp as k1
     from super4pcs_tpu_torch.kernels import rowcap as k2
     from super4pcs_tpu_torch.kernels import rowcap_layout as k2x
@@ -993,7 +1141,8 @@ def _graph_kernels(graph):
              (k1.lcp_min_d2, "launches"): K1B_NAME,
              (k2.rowcap_capture, "launches"): K2_NAME,
              (k2x.rowcap_layout, "launches"): K2X_NAME,
-             (k1.nearest_within, "launches"): KR_NAME}
+             (k1.nearest_within, "launches"): KR_NAME,
+             (kj.grid_join, "launches"): KJ_NAME}
     return len(nodes), {c: sum(name in n for n in nodes)
                         for c, name in named.items()}
 
@@ -2535,6 +2684,7 @@ def main() -> int:
     import bench
     import super4pcs_tpu_torch as s4
     from super4pcs_tpu_torch.kernels import _build
+    from super4pcs_tpu_torch.kernels import join as kj
     from super4pcs_tpu_torch.kernels import lcp as k1
     from super4pcs_tpu_torch.kernels import rowcap as k2
     from super4pcs_tpu_torch.kernels import rowcap_layout as k2x
@@ -2555,7 +2705,7 @@ def main() -> int:
     # together
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        futures = [pool.submit(k._lib) for k in (k1, k2, k2x)]
+        futures = [pool.submit(k._lib) for k in (k1, k2, k2x, kj)]
         io_lib = pool.submit(io_native.get_lib)
         for f in futures:
             f.result()
@@ -2638,6 +2788,19 @@ def main() -> int:
         _headline_path(P, Q, opts, s4, counters, by_path, report)
         print(json.dumps({"kernels": [dict(name="nearest_within",
                                            shapes=kr_rows)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--join-only" in sys.argv:
+        # phases 3d and 5 alone: KJ, the main path that launches it, and
+        # the step's split
+        kj_rows = _join_rows(s4, p_pos, q_pos, opts, dev)
+        _headline_path(P, Q, opts, s4, counters, by_path, report)
+        split = _step_split(P, Q, opts, s4)
+        print(json.dumps({"kernels": [dict(name="grid_join",
+                                           shapes=kj_rows)],
+                          "step_split": split}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2854,6 +3017,9 @@ def main() -> int:
 
     # 3c. KR, the refine's neighbour walk, at the headline's shapes
     kr_rows = _refine_walk_rows(p_pos, q_pos, opts.delta, dev)
+
+    # 3d. KJ, the join kernel, on a step's joins
+    kj_rows = _join_rows(s4, p_pos, q_pos, opts, dev)
 
     # 4. K2 against its plain version (edge 0 with the join hash)
     gen = torch.Generator(device=dev)
@@ -3301,6 +3467,15 @@ def main() -> int:
              launches=sum(launches("nearest_within").values()),
              launches_by_path=launches("nearest_within"),
              shapes=kr_rows, **kr_rows["1x"]),
+        dict(name="grid_join", route="cuda",
+             source="super4pcs_tpu_torch/csrc/join.cu",
+             replaces=("no TPU kernel: the port's sort-based range search "
+                       "of ops/congruent.py::find_congruent_quads_grid "
+                       "over the capture kernel's tables"),
+             launches=sum(launches("grid_join").values()),
+             launches_by_path=launches("grid_join"),
+             shapes=kj_rows, **{k: kj_rows["T=16 w=2"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     if "--seeds" in sys.argv:
         seeds = [int(x) for x in

@@ -71,6 +71,7 @@ other engines' draws do not depend on them.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import time
@@ -80,6 +81,7 @@ import numpy as np
 import torch
 
 from .cloud import PointCloud
+from .kernels import join as join_kernel
 from .kernels import lcp as lcp_kernel
 from .kernels.lcp import PAIR_TEST_OPS
 from .kernels import rowcap as rowcap_kernel
@@ -202,6 +204,19 @@ def _step_seed(random_seed: int, step_idx: int) -> int:
     """Seed of one step's draws: a fixed function of the run seed and
     the step index, so a resumed run continues the same stream."""
     return (int(random_seed) * 1_000_003 + int(step_idx)) % (1 << 63)
+
+
+@contextlib.contextmanager
+def step_span(device=None):
+    """A span "step" (utils/profiling.py) around one step run, which
+    also adds 1 to the counter ``join_kernel_steps`` when the step's
+    join ran the join kernel (``kernels/join.py``): its launch count
+    moved, as a replay moves it by its capture's launches."""
+    before = join_kernel.grid_join.launches
+    with profiling.span("step", device):
+        yield
+    profiling.count("join_kernel_steps",
+                    int(join_kernel.grid_join.launches > before))
 
 
 def _build_try_bases(opts: Options, nq: int, cone_tol: float,
@@ -425,7 +440,14 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
                  else qb_default)
          * congruent.probe_window(dist_thr, cell_size) ** 3) // 8)
 
-    def _phase_costs(np_: int) -> dict:
+    # the join kernel's inputs (kernels/join.py::takes): the capture
+    # kernel's table hash and candidate tests the kernel runs
+    kernel_join = capture_kernel and join_kernel.tests_candidates(
+        opts.direction_bins, cone_tol,
+        geometry.SCALE_RATIO_DEV if est_scale else -1.0,
+        opts.cell_candidates)
+
+    def _phase_costs(np_: int, device=None) -> dict:
         """First-order operations + device-memory bytes of the trial
         phases of ONE step (x bases_per_step), from the static
         capacities that size the buffers: the JAX package's
@@ -434,7 +456,9 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
         every table once with ``torch.sort`` over int64 keys, counted as
         the keys read once and the sorted keys and their int64
         permutation written once, where the JAX package counts the
-        passes of a bitonic network."""
+        passes of a bitonic network. On a CUDA ``device`` the capture
+        kernel's join is the join kernel's, which sorts nothing
+        (``kernels/join.py::join_bytes``)."""
         b = opts.bases_per_step
         sel_fl = b * (n_tri * 40.0 + np_ * 24.0)
         sel_by = b * np_ * 12.0
@@ -465,6 +489,17 @@ def _build_try_bases(opts: Options, nq: int, cone_tol: float,
         if dense_join:
             jn_fl = b * float(k_pairs) * k_pairs * 10.0
             jn_by = b * float(k_pairs) * k_pairs * 1.0
+        elif kernel_join and torch.device(device or "cpu").type == "cuda":
+            qb = min(opts.join_q_budget or 8192, int(k1))
+            probes = float(qb) * congruent.probe_window(
+                dist_thr, cell_size) ** 3
+            kept = min(float(probe_budget), probes)
+            # a hash lookup a slot twice, each probe's cell hash and
+            # entry, each kept candidate's tests
+            jn_fl = b * (k1 * 10.0 + probes * 20.0
+                         + kept * opts.cell_candidates * 30.0)
+            jn_by = b * join_kernel.join_bytes(
+                k1, probes, kept, opts.cell_candidates, k_quads)
         else:
             qb = min(opts.join_q_budget or 8192, int(k2_eff))
             w = congruent.probe_window(dist_thr, cell_size)
@@ -611,9 +646,10 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
     samples, each pair's bases in one shard: what a capture that no
     eager step precedes needs built.
 
-    ``step.cost_model(np_, verify_stages)``: the step's first-order
-    operations and bytes per phase (utils/roofline.py), the verify's
-    from ``verify_stages`` (``ops.lcp.stage_tests`` of ``stages``).
+    ``step.cost_model(np_, verify_stages, device=None)``: the step's
+    first-order operations and bytes per phase (utils/roofline.py), the
+    verify's from ``verify_stages`` (``ops.lcp.stage_tests`` of
+    ``stages``), the join's on ``device`` (the join kernel's on a card).
 
     Returns (step, (k_pairs, k_quads, n_cands)).
     """
@@ -741,7 +777,7 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
                    p_norm, p_rgb, q_pos, q_norm, q_rgb, q_bounds, p_index,
                    marks, stages)
 
-    def cost_model(np_: int, verify_stages) -> dict:
+    def cost_model(np_: int, verify_stages, device=None) -> dict:
         """The trial phases' costs (see :func:`_build_try_bases`) and
         the verify's: the pair tests its pruned K1 launches made (9
         float32 operations each, csrc/lcp.cu) and each launch's inputs
@@ -749,7 +785,7 @@ def build_step(opts: Options, nq: int, cone_tol: float, band_index=None):
         int32 keys) and output written once, as chip_smoke.py's K1
         bound counts them. The JAX package counts its brute force
         there (8 operations per candidate, query and P point)."""
-        costs = dict(try_bases.phase_costs(np_))
+        costs = dict(try_bases.phase_costs(np_, device))
         fl = by = 0.0
         for g, c, nq_, np_s, tests in verify_stages:
             fl += PAIR_TEST_OPS * tests
@@ -1377,11 +1413,11 @@ class Match4PCSBase:
             draws = self._draws(step_idx)
 
             def run():
-                with profiling.span("step", self.device):
+                with step_span(self.device):
                     out = step.run(draws, self._max_base_diameter, *args)
                     return {k: v[0].cpu().numpy() for k, v in out.items()}
             return run
-        with profiling.span("step", self.device):
+        with step_span(self.device):
             out = self._graph(*self._draws(step_idx))
             return self._step_host.put({k: v[0] for k, v in out.items()})
 
@@ -1628,7 +1664,8 @@ class Match4PCSBase:
         self._stats["phase_seconds"] = dict(timers.phases)
         self.logger.verbose(timers.table())
         costs = self._step_fn.cost_model(int(self._d_p_pos.shape[0]),
-                                         lcp.stage_tests(stages))
+                                         lcp.stage_tests(stages),
+                                         self.device)
         roof = roofline.attribute(costs, dict(timers.phases))
         self._stats["phase_roofline"] = roof
         self.logger.verbose(roofline.table(roof))

@@ -30,6 +30,7 @@ import torch
 from . import healpix as _healpix
 from . import masking as _masking
 from .masking import masked_indices
+from ..kernels import join as _join
 from ..kernels.rowcap import SENT, cell_hash_of
 
 
@@ -324,6 +325,13 @@ def find_congruent_quads_grid(
     trials at a wide probe window is joined in a few calls, each with
     its own sort, with every trial's outputs unchanged.
 
+    On a CUDA device the inputs of the capture kernel's route (its
+    table hash over cols-only tables, a probe budget, the cone test or
+    none, no scale band: ``kernels/join.py::takes``) go to the join
+    kernel (``kernels/join.py::grid_join``), which has no sort and gives
+    the same outputs, every trial in one launch. Every other join, and
+    every join on the CPU, runs the body below.
+
     Returns (quads (capacity, 4) int64, valid, count, dropped,
     q_subsampled): ``dropped`` counts per-cell cap and probe-budget
     drops, ``q_subsampled`` the second-side pairs beyond the budget (in
@@ -332,6 +340,16 @@ def find_congruent_quads_grid(
     """
     if allpairs_cols and row_cap is None:
         raise ValueError("allpairs_cols requires row_cap")
+    if pos.device.type == "cuda" and _join.takes(
+            pairs1, valid1, pairs2, valid2, table_hash, row_cap,
+            direction_bins,
+            cone_cos_tolerance, scale_band, allpairs_cols, q_uniform,
+            probe_budget, cell_candidates):
+        return _join.grid_join(
+            pos, pairs1, valid1, pairs2, valid2, table_hash, invariant1,
+            invariant2, distance_threshold, base_cos_alpha,
+            cone_cos_tolerance, capacity, cell_candidates, q_budget,
+            row_cap, probe_budget, cell_size)
     single = valid1.ndim == 1
     if single:
         pos = pos[None]

@@ -84,7 +84,7 @@ from ..matcher import (Match4PCS, MatchSuper4PCS, RegistrationResult,
                        _K_DIAMETER_FRACTION, _K_MIN_TRIALS, _K_SMALL_ERROR,
                        _step_seed, build_step, capture_bounds,
                        resolve_bases_per_step, resolve_pair_engine,
-                       uses_capture_kernel, warm_kind)
+                       step_span, uses_capture_kernel, warm_kind)
 from ..options import K_NUMBER_OF_DIAMETER_TRIALS, Options
 from ..ops import geometry, lcp, refine, sampling
 from ..ops.band_extract import build_batched_band_index
@@ -341,7 +341,7 @@ class BatchRun:
                 tuple(t[sh.lo:sh.hi].to(sh.dev) for t in draws), sh.diam,
                 *sh.arrays, sh.q_bounds, sh.p_index)
 
-        with torch.no_grad(), profiling.span("step", self.span_device):
+        with torch.no_grad(), step_span(self.span_device):
             self.gen.manual_seed(_step_seed(self.opts.random_seed,
                                             step_idx))
             draws = self.step.draw(self.gen, self.g, self.np_max)

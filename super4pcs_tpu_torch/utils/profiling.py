@@ -88,8 +88,10 @@ class SpanTable:
     it registers), ``spans`` ({path:
     {"count", "host_s", "device_s"}}, the root "call" first, the others
     in the order they first opened; ``device_s`` None for a path with no
-    device span), the counters added with :func:`count` (``index_builds``
-    and ``refine_walks``, the refine's neighbour walks, from 0), and on
+    device span), the counters added with :func:`count` (``index_builds``,
+    ``refine_walks``, the refine's neighbour walks, and
+    ``join_kernel_steps``, the steps whose join ran the join kernel, from
+    0), and on
     the card ``device_allocs`` (the ``num_device_alloc`` of
     ``torch.cuda.memory_stats`` the call added)."""
 
@@ -97,7 +99,7 @@ class SpanTable:
         self.device = device
         self.stats = {"call": next(_CALL_IDS), "pairs": pairs,
                       "spans": {"call": _row()}, "index_builds": 0,
-                      "refine_walks": 0}
+                      "refine_walks": 0, "join_kernel_steps": 0}
         #: the open spans' paths, innermost last ("" the root's)
         self._open = [""]
         #: (row, start event, end event) of the device spans

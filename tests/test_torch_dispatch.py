@@ -23,6 +23,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import super4pcs_tpu as s4j
 import super4pcs_tpu_torch as s4t
 from super4pcs_tpu_torch import cli as tcli
+from super4pcs_tpu_torch.kernels import join as kj
 from super4pcs_tpu_torch.kernels import lcp as k1
 from super4pcs_tpu_torch.kernels import rowcap as k2
 from super4pcs_tpu_torch.kernels import rowcap_layout as k2x
@@ -292,7 +293,9 @@ def test_launch_record_replays_the_captured_increments():
              (k2.rowcap_capture, "captures"): 32,
              (k2.rowcap_capture, "filtered_launches"): 0,
              (k2x.rowcap_layout, "launches"): 1,
-             (k2x.rowcap_layout, "captures"): 32}
+             (k2x.rowcap_layout, "captures"): 32,
+             (kj.grid_join, "launches"): 1,
+             (kj.grid_join, "trials"): 16}
     assert set(added) == set(COUNTERS)    # the kernels registered theirs
     start = [getattr(o, a) for o, a in COUNTERS]
     with LaunchRecord() as rec:
